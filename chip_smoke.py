@@ -9,19 +9,34 @@ It imports nothing of JAX or of the JAX package. Phases, each of which
 raises on failure (a failed phase ends the run with a non-zero exit):
 
 1. Device facts: the card's name and power limit from ``nvidia-smi``.
-2. Build: the CUDA kernel from ``gpssim_tpu_torch/csrc`` with ``nvcc`` and,
-   alongside it, the native host engine (strict-parity corrections).
-3. Kernel against plain version: ``synth_blocks_batch_cuda`` against
-   ``synth_blocks_batch_torch`` on the card, byte for byte, at the main
+2. Build: every CUDA kernel under ``gpssim_tpu_torch/csrc`` (one ``nvcc``
+   each) and the native host engine (strict-parity corrections), all
+   started together.
+3. Kernels against their plain versions, byte for byte, at the main
    path's shapes (25 fixture blocks per window: 3 Msps at 8 and 16 bits,
-   integer NCO, 1.2 Msps wide window, 6 Msps with the q2 row digit).
-4. End to end: the CLI in-process on a 10 s scenario (99 blocks, 4
-   windows) with ``--backend cuda``; its bytes must equal the same
-   scenario on ``--backend native``. The kernel's launch count is reset
-   just before that run and read just after. The run is then repeated
-   under torch.profiler for the host stages and the device's idle share.
-5. Times: the kernel and its plain version per 25-block window (CUDA
-   events, median), beside the least time the card could take.
+   integer NCO, 1.2 Msps wide window, 6 Msps with the q2 row digit): K1
+   (``synth_blocks_batch_cuda``) against ``synth_blocks_batch_torch``; the
+   two-stage path (producer, K2, finalize) against its plain version; the
+   raw rows of K2 and of K1's raw mode against ``synth_batch_torch_raw``;
+   and K2's finalized bytes against K1's.
+4. End to end, each path with the kernels' launch counts set to 0 just
+   before it and read just after:
+   [4]  the CLI in-process on a 10 s scenario (99 blocks, 4 windows) with
+        ``--backend cuda``; its bytes must equal ``--backend native``, and
+        only K1 may launch. The run is repeated under torch.profiler for
+        the host stages and the device's idle share.
+   [4b] the same CLI run with ``GPSSIM_FUSE_A=0`` (the two-stage path):
+        the same bytes, K2 launched and K1 not.
+   [4c] ``--fleet`` with a 3-row roster for 5 s: each member file equals
+        a solo ``--backend native`` run at its location; then the same
+        fleet over a (1, 2) mesh of the one card (K1's raw mode and the
+        channel sum).
+   [4d] ``make_sharded_synth(kernel="cuda")`` over that mesh on the
+        25-block window: the bytes of K1's output.
+5. Times: K1 and K2 and their plain versions per 25-block window (CUDA
+   events, median), beside the least time the card could take; the
+   producer's and the finalize's times; the fleet's aggregate realtime
+   factor.
 
 It prints the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -42,6 +57,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "fixtures", "brdc_test.22n")
 LOCATION = "35.681298,139.766247,10.0"
 WINDOW = 25  # blocks per launch on the main path (cfg.dispatch_blocks)
+# the fleet phase's roster: Tokyo, New York, Paris
+FLEET_ROSTER = ("35.681298,139.766247,10", "40.7128,-74.0060,20",
+                "48.8584,2.2945,35")
+FLEET_SECONDS = 5
 
 # Published peaks of one H100 SXM (NVIDIA data sheet and Hopper white
 # paper): 3.35 TB/s of HBM3; 132 SMs at a 1.98 GHz boost clock, each
@@ -52,10 +71,11 @@ WINDOW = 25  # blocks per launch on the main path (cfg.dispatch_blocks)
 # 1.98 GHz give the data sheet's 67 TFLOP/s float32.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 128 * 132 * 1.98e9
-# int32 ALU operations per channel-sample in the kernel's stage-B loop
-# body (gpssim_tpu_torch/csrc/synth_k1.cu), counted from the source: code
-# phase 5, window word and chip sign 5, carrier index 6, two |LUT| 2, two
-# split-Q44 gain folds 10, two sign selects 6, two accumulates 2.
+# int32 ALU operations per channel-sample in the kernels' stage-B loop
+# body (gpssim_tpu_torch/csrc/stage_b.cuh, shared by K1 and K2), counted
+# from the source: code phase 5, window word and chip sign 5, carrier
+# index 6, two |LUT| 2, two split-Q44 gain folds 10, two sign selects 6,
+# two accumulates 2.
 OPS_PER_CHANNEL_SAMPLE = 36
 
 
@@ -69,8 +89,8 @@ def device_facts() -> str:
 
 
 def build_all() -> dict:
-    """nvcc for the kernel and g++ for the native engine, started
-    together; returns seconds per build."""
+    """nvcc for every kernel source and g++ for the native engine, all
+    started together; returns seconds per build."""
     from gpssim_tpu_torch.ops import _build
     from gpssim_tpu_torch.ops.synth_seq import seq_available
 
@@ -84,19 +104,22 @@ def build_all() -> dict:
             errors.append(e)
         times[name] = time.perf_counter() - t
 
-    def kernel():
-        _, report = _build.build("synth_k1.cu")
-        if report:
-            print(report.strip(), file=sys.stderr)
-        _build.load("synth_k1.cu")
+    def kernel(source):
+        def go():
+            _, report = _build.build(source)
+            if report:
+                print(report.strip(), file=sys.stderr)
+            _build.load(source)
+        return go
 
     def native():
         if not seq_available():
             raise RuntimeError("native engine did not build "
                                "(tools/build_native.sh)")
 
-    threads = [threading.Thread(target=timed, args=(n, f))
-               for n, f in (("synth_k1.cu", kernel), ("native", native))]
+    jobs = [(src, kernel(src)) for src in _build.sources()]
+    threads = [threading.Thread(target=timed, args=job)
+               for job in jobs + [("native", native)]]
     for t in threads:
         t.start()
     for t in threads:
@@ -106,11 +129,24 @@ def build_all() -> dict:
     return times
 
 
+def reset_launches() -> None:
+    from gpssim_tpu_torch.ops.synth_cuda import launches
+
+    for k in launches:
+        launches[k] = 0
+
+
+def read_launches() -> dict:
+    from gpssim_tpu_torch.ops.synth_cuda import launches
+
+    return dict(launches)
+
+
 def fixture_window(sample_rate: int, int_nco: bool = False,
                    blocks: int = WINDOW) -> tuple:
-    """(packed int32 args, spec, num_samples, n_rows, wide) for the first
-    ``blocks`` blocks of the fixture scenario, collated as the main path
-    collates them."""
+    """(packed int32 args, spec, num_samples, n_rows, wide, numpy args)
+    for the first ``blocks`` blocks of the fixture scenario, collated as
+    the main path collates them."""
     from gpssim_tpu_torch.config import CarrierMode, LocationConfig, SimConfig
     from gpssim_tpu_torch.ops.args import (
         LANES, collate_plans, needs_wide_window, pack_args,
@@ -131,7 +167,8 @@ def fixture_window(sample_rate: int, int_nco: bool = False,
                           compact_multiple=4)
     packed, spec = pack_args(batch.args)
     n = cfg.samples_per_epoch
-    return packed, spec, n, -(-n // LANES), needs_wide_window(1 / sample_rate)
+    return (packed, spec, n, -(-n // LANES),
+            needs_wide_window(1 / sample_rate), batch.args)
 
 
 def on_card(packed, spec):
@@ -150,29 +187,91 @@ def compare_kernel(name: str, window, out_bits: int) -> int:
     from gpssim_tpu_torch.ops.synth_cuda import synth_blocks_batch_cuda
     from gpssim_tpu_torch.ops.synth_torch import synth_blocks_batch_torch
 
-    packed, spec, n, n_rows, wide = window
+    packed, spec, n, n_rows, wide, _ = window
     args = on_card(packed, spec)
     kw = dict(n_rows=n_rows, num_samples=n, out_bits=out_bits, wide=wide)
-    got = synth_blocks_batch_cuda(args, **kw)
+    got = synth_blocks_batch_cuda(args, **kw, fuse_a=True)
     want = synth_blocks_batch_torch(args, **kw)
+    C = args["gain_a"].shape[1]
+    return max_diff(f"K1 on {name}", got, want,
+                    f"B={got.shape[0]} N={n} C={C} wide={wide} "
+                    f"bits={out_bits}")
+
+
+def max_diff(what: str, got, want, facts: str, pairs: bool = True) -> int:
+    """max |got - want| (0: byte-equal), printed; raises on any
+    difference, naming the first differing (block, sample)."""
+    import torch
+
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(
-            f"K1 on {name}: {tuple(got.shape)} {got.dtype}, plain version "
+            f"{what}: {tuple(got.shape)} {got.dtype}, plain version "
             f"{tuple(want.shape)} {want.dtype}")
-    C = args["gain_a"].shape[1]
     diff = got.to(torch.int32) - want.to(torch.int32)
     max_err = int(diff.abs().max())
-    print(f"  {name}: B={got.shape[0]} N={n} C={C} wide={wide} "
-          f"bits={out_bits} max_abs_err={max_err}")
+    print(f"  {what}: {facts} max_abs_err={max_err}")
     if max_err:
-        bad = torch.nonzero(diff.view(diff.shape[0], -1, 2).any(-1))
+        flat = diff.reshape(diff.shape[0], -1)
+        if pairs:
+            flat = flat.view(diff.shape[0], -1, 2)
+        bad = torch.nonzero(flat.any(-1) if pairs else flat)
         raise AssertionError(
-            f"K1 != plain version on {name}: first differing "
-            f"(block, sample) {tuple(int(v) for v in bad[0])}, "
-            f"{len(bad)} samples differ"
+            f"{what} != plain version: first differing (block, sample) "
+            f"{tuple(int(v) for v in bad[0])}, {len(bad)} samples differ"
         )
     return max_err
+
+
+def compare_two_stage(name: str, window, out_bits: int) -> int:
+    """The two-stage path (producer, K2, finalize) against its plain
+    version on one window; returns max |difference|."""
+    from gpssim_tpu_torch.ops.synth_cuda import synth_blocks_batch_cuda
+    from gpssim_tpu_torch.ops.synth_torch import (
+        finalize_rows, synth_batch_torch_raw,
+    )
+
+    packed, spec, n, n_rows, wide, _ = window
+    args = on_card(packed, spec)
+    got = synth_blocks_batch_cuda(args, n_rows=n_rows, num_samples=n,
+                                  out_bits=out_bits, wide=wide, fuse_a=False)
+    want = finalize_rows(*synth_batch_torch_raw(args, n_rows=n_rows,
+                                                wide=wide, fuse_a=False),
+                         n, out_bits)
+    C = args["gain_a"].shape[1]
+    return max_diff(f"K2 two-stage on {name}", got, want,
+                    f"B={got.shape[0]} N={n} C={C} wide={wide} "
+                    f"bits={out_bits}")
+
+
+def compare_raw_rows(name: str, window) -> dict:
+    """Raw rows (all R_pad rows) of K2 and of K1's raw mode against
+    ``synth_batch_torch_raw``; returns max |difference| per kernel."""
+    from gpssim_tpu_torch.ops.synth_cuda import (
+        stage_b_packed_cuda, synth_k1_raw,
+    )
+    from gpssim_tpu_torch.ops.synth_torch import (
+        padded_rows, row_bases_packed, synth_batch_torch_raw,
+    )
+
+    packed, spec, n, n_rows, wide, _ = window
+    args = on_card(packed, spec)
+    want = synth_batch_torch_raw(args, n_rows=n_rows, wide=wide,
+                                 fuse_a=False)
+    bases = row_bases_packed(args["code_l"], args["carr_l"], args["nav"],
+                             args["ca_packed"], padded_rows(n_rows), wide)
+    got = {
+        "K2": stage_b_packed_cuda(bases, args["lane_steps"],
+                                  args["gain_a"], args["gain_b"], wide),
+        "K1": synth_k1_raw(args, n_rows=n_rows, wide=wide),
+    }
+    R = want[0].shape[1]
+    return {
+        k: max(max_diff(f"{k} raw {plane} rows on {name}", g, w,
+                        f"B={w.shape[0]} R_pad={R}", pairs=False)
+               for plane, g, w in zip("iq", got[k], want))
+        for k in got
+    }
 
 
 def run_cli(backend: str, out_file: str, extra=()) -> tuple:
@@ -191,11 +290,29 @@ def run_cli(backend: str, out_file: str, extra=()) -> tuple:
     return stats, wall
 
 
-def end_to_end(workdir: str) -> dict:
+def files_equal(what: str, ref_file: str, out_file: str,
+                blocks: int | None = None) -> None:
+    """Raise unless the two files hold the same bytes (and, given
+    ``blocks``, that many 8-bit blocks of 3 Msps)."""
     import numpy as np
 
+    ref = np.fromfile(ref_file, dtype=np.int8)
+    out = np.fromfile(out_file, dtype=np.int8)
+    if blocks is not None and out.size != blocks * 2 * 300_000:
+        raise AssertionError(f"{what}: {out.size} bytes, not {blocks} "
+                             "blocks")
+    if not np.array_equal(ref, out):
+        bad = np.flatnonzero(ref != out) if ref.size == out.size else []
+        raise AssertionError(
+            f"{what}: bytes != --backend native ({ref.size} vs {out.size} "
+            f"bytes; {len(bad)} differ, first at "
+            f"{int(bad[0]) if len(bad) else None})"
+        )
+
+
+def end_to_end(workdir: str) -> dict:
+    """[4] the main path; leaves the native run's file for [4b]."""
     from gpssim_tpu_torch.config import SimConfig
-    from gpssim_tpu_torch.ops.synth_cuda import synth_blocks_batch_cuda
     from gpssim_tpu_torch.runner import strict_parity_enabled
 
     if not strict_parity_enabled(SimConfig()):
@@ -205,25 +322,16 @@ def end_to_end(workdir: str) -> dict:
     out_file = os.path.join(workdir, "cuda.bin")
     run_cli("native", ref_file)
 
-    synth_blocks_batch_cuda.launches = 0
+    reset_launches()
     stats, wall = run_cli("cuda", out_file)
-    launches = synth_blocks_batch_cuda.launches
+    launches = read_launches()
 
-    ref = np.fromfile(ref_file, dtype=np.int8)
-    out = np.fromfile(out_file, dtype=np.int8)
-    if stats.blocks != 99 or out.size != 99 * 2 * 300_000:
-        raise AssertionError(f"cuda run wrote {stats.blocks} blocks, "
-                             f"{out.size} bytes")
-    if not np.array_equal(ref, out):
-        bad = np.flatnonzero(ref != out) if ref.size == out.size else []
-        raise AssertionError(
-            f"--backend cuda bytes != --backend native ({ref.size} vs "
-            f"{out.size} bytes; {len(bad)} differ, first at "
-            f"{int(bad[0]) if len(bad) else None})"
-        )
-    if launches < 4:
-        raise AssertionError(f"K1 launched {launches} times on the main "
-                             "path (expected >= 4)")
+    if stats.blocks != 99:
+        raise AssertionError(f"cuda run wrote {stats.blocks} blocks")
+    files_equal("--backend cuda", ref_file, out_file, blocks=99)
+    if launches["K1"] < 4 or launches["K2"] != 0:
+        raise AssertionError(f"main path launches {launches} (expected K1 "
+                             ">= 4, K2 0)")
     if stats.retries != 0:
         raise AssertionError(f"{stats.retries} window retries")
     # the spread of the end-to-end rate: four more runs of the same CLI
@@ -233,7 +341,7 @@ def end_to_end(workdir: str) -> dict:
           f"= {stats.blocks / stats.wall_seconds:.1f} blocks/s, "
           f"{stats.samples_per_second / 1e6:.2f} Msps, "
           f"x{stats.realtime_factor:.2f} realtime (process wall incl. "
-          f"set-up {wall:.3f} s); K1 launches {launches}; retries "
+          f"set-up {wall:.3f} s); launches {launches}; retries "
           f"{stats.retries}; bytes equal to --backend native")
     med = statistics.median(walls)
     print(f"  5 runs: wall s {', '.join(f'{w:.4f}' for w in walls)}; median "
@@ -244,31 +352,171 @@ def end_to_end(workdir: str) -> dict:
                 realtime_x_median=stats.blocks * 0.1 / med)
 
 
-def profile_e2e(workdir: str) -> dict:
-    """The cuda CLI run again under torch.profiler: device time by name
-    (kernels and copies, summed over both streams) against the run's wall
-    time. The device's idle share is 1 - busy/wall (a lower bound where
-    the copies of one window overlap the other window's kernel)."""
+def two_stage_e2e(workdir: str) -> dict:
+    """[4b] the 10 s CLI run with GPSSIM_FUSE_A=0: producer → K2 →
+    finalize, the bytes of the native run of [4]."""
+    out_file = os.path.join(workdir, "two_stage.bin")
+    old = os.environ.get("GPSSIM_FUSE_A")
+    os.environ["GPSSIM_FUSE_A"] = "0"
+    try:
+        reset_launches()
+        stats, _ = run_cli("cuda", out_file)
+        launches = read_launches()
+    finally:
+        if old is None:
+            del os.environ["GPSSIM_FUSE_A"]
+        else:
+            os.environ["GPSSIM_FUSE_A"] = old
+    files_equal("GPSSIM_FUSE_A=0 --backend cuda",
+                os.path.join(workdir, "native.bin"), out_file, blocks=99)
+    if launches["K2"] < 4 or launches["K1"] != 0:
+        raise AssertionError(f"two-stage path launches {launches} "
+                             "(expected K2 >= 4, K1 0)")
+    print(f"  GPSSIM_FUSE_A=0 cuda CLI: {stats.blocks} blocks in "
+          f"{stats.wall_seconds:.3f} s = {stats.samples_per_second / 1e6:.2f}"
+          f" Msps; launches {launches}; bytes equal to --backend native")
+    return dict(launches=launches, wall_s=stats.wall_seconds,
+                msps=stats.samples_per_second / 1e6)
+
+
+def fleet_e2e(workdir: str) -> dict:
+    """[4c] ``--fleet`` with the 3-row roster, then the same fleet over a
+    (1, 2) mesh of the one card; every member file equals its solo
+    native run. Both runs are then repeated under the profiler."""
+    import dataclasses
+
+    import torch
+
+    from gpssim_tpu_torch import cli
+    from gpssim_tpu_torch.config import SimConfig, SynthBackend
+    from gpssim_tpu_torch.fleet import (
+        member_configs, parse_fleet_file, run_fleet,
+    )
+    from gpssim_tpu_torch.parallel.shard import make_mesh
+
+    roster = os.path.join(workdir, "roster.csv")
+    with open(roster, "w") as fp:
+        fp.write("\n".join(FLEET_ROSTER) + "\n")
+    blocks = FLEET_SECONDS * 10 - 1
+    common = ["-e", FIXTURE, "-d", str(FLEET_SECONDS), "--disable-almanac",
+              "-r", "iqfile"]
+    solo = []
+    for i, loc in enumerate(FLEET_ROSTER):
+        solo.append(os.path.join(workdir, f"solo{i}.bin"))
+        rc, _ = cli.run(common + ["-l", loc, "--backend", "native",
+                                  "--out-file", solo[-1]])
+        if rc != 0:
+            raise RuntimeError(f"native solo run {i} exited {rc}")
+
+    reset_launches()
+    rc, stats = cli.run(common + ["--backend", "cuda", "--fleet", roster,
+                                  "--out-file",
+                                  os.path.join(workdir, "fleet.bin")])
+    launches = read_launches()
+    if rc != 0:
+        raise RuntimeError(f"--fleet exited {rc}")
+    for i, ref in enumerate(solo):
+        files_equal(f"fleet member {i}", ref,
+                    os.path.join(workdir, f"fleet_m{i}.bin"), blocks=blocks)
+    if launches["K1"] < 1 or launches["K2"] != 0:
+        raise AssertionError(f"fleet launches {launches} (expected K1 >= 1,"
+                             " K2 0)")
+    wall = max(st.wall_seconds for st in stats)
+    agg = sum(st.blocks for st in stats) * 0.1 / wall
+    print(f"  --fleet ({len(stats)} members x {blocks} blocks): wall "
+          f"{wall:.3f} s, aggregate x{agg:.2f} realtime; launches "
+          f"{launches}; every member equal to its solo native run")
+
+    base = SimConfig(nav_file=FIXTURE, duration_sec=float(FLEET_SECONDS),
+                     almanac_enable=False, backend=SynthBackend.CUDA,
+                     sink="iqfile", out_file=os.path.join(workdir, "mesh.bin"))
+    cfgs = member_configs(base, parse_fleet_file(roster))
+    card = torch.device("cuda", 0)
+    reset_launches()
+    mstats = run_fleet(cfgs, mesh=make_mesh(1, 2, devices=[card, card]))
+    mesh_launches = read_launches()
+    for i, ref in enumerate(solo):
+        files_equal(f"(1, 2) mesh fleet member {i}", ref,
+                    os.path.join(workdir, f"mesh_m{i}.bin"), blocks=blocks)
+    if mesh_launches["K1"] < 2 or mesh_launches["K2"] != 0:
+        raise AssertionError(f"mesh fleet launches {mesh_launches} "
+                             "(expected K1 >= 2, K2 0)")
+    mwall = max(st.wall_seconds for st in mstats)
+    magg = sum(st.blocks for st in mstats) * 0.1 / mwall
+    print(f"  fleet over a (1, 2) mesh of one card: wall {mwall:.3f} s, "
+          f"aggregate x{magg:.2f} realtime; launches {mesh_launches}; "
+          "every member equal to its solo native run")
+    prof = profile_run("--fleet", lambda: cli.run(
+        common + ["--backend", "cuda", "--fleet", roster, "--out-file",
+                  os.path.join(workdir, "fprof.bin")])[1])
+    mprof = profile_run("(1, 2) mesh fleet", lambda: run_fleet(
+        member_configs(dataclasses.replace(
+            base, out_file=os.path.join(workdir, "mprof.bin")),
+            parse_fleet_file(roster)),
+        mesh=make_mesh(1, 2, devices=[card, card])))
+    return dict(launches=launches, wall_s=wall, realtime_x_aggregate=agg,
+                mesh_launches=mesh_launches, mesh_wall_s=mwall,
+                mesh_realtime_x_aggregate=magg, profile=prof,
+                mesh_profile=mprof)
+
+
+def sharded_window(window) -> dict:
+    """[4d] make_sharded_synth(kernel="cuda") over a (1, 2) mesh of the
+    one card on the 25-block window: the bytes of K1's output."""
+    import torch
+
+    from gpssim_tpu_torch.ops.synth_cuda import synth_blocks_batch_cuda
+    from gpssim_tpu_torch.parallel.shard import (
+        make_mesh, make_sharded_synth, pad_batch, pad_channels,
+    )
+
+    packed, spec, n, n_rows, wide, args_np = window
+    card = torch.device("cuda", 0)
+    fn = make_sharded_synth(make_mesh(1, 2, devices=[card, card]), n_rows,
+                            n, wide=wide, out_bits=8, kernel="cuda")
+    batch, pad = pad_batch(pad_channels(args_np, 2), 1)
+    reset_launches()
+    got = torch.from_numpy(fn(batch).result())
+    launches = read_launches()
+    want = synth_blocks_batch_cuda(on_card(packed, spec), n_rows=n_rows,
+                                   num_samples=n, out_bits=8, wide=wide,
+                                   fuse_a=True).cpu()
+    if pad or launches["K2"] != 2 or launches["K1"] != 0:
+        raise AssertionError(f"sharded window: pad {pad}, launches "
+                             f"{launches} (expected K2 2, K1 0)")
+    max_diff("(1, 2) mesh, kernel cuda, against K1", got, want,
+             f"B={got.shape[0]} N={n} launches {launches}")
+    return dict(launches=launches)
+
+
+def profile_run(what: str, run) -> dict:
+    """``run()`` (returning RunStats, or a fleet's list of them) under
+    torch.profiler: the host stages (a fleet books them on member 0) and
+    the device time by name (kernels and copies, summed over streams)
+    against the run's wall time. The device's idle share is 1 - busy/wall
+    (a lower bound where one window's copies overlap another's kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        stats, _ = run_cli("cuda", os.path.join(workdir, "prof.bin"))
+        stats = run()
+    members = stats if isinstance(stats, list) else [stats]
+    st = members[0]
     by_name = {}
     for e in prof.key_averages():  # device-side events: kernels, copies
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             by_name[e.key] = e.self_device_time_total / 1e3
     busy_ms = sum(by_name.values())
-    wall_ms = stats.wall_seconds * 1e3
+    wall_ms = max(m.wall_seconds for m in members) * 1e3
     host = dict(
-        plan_ms=stats.plan_seconds * 1e3,
-        collate_launch_ms=stats.synth_seconds * 1e3,
-        fetch_wait_ms=stats.fetch_seconds * 1e3,
-        corrections_ms=stats.correct_seconds * 1e3,
+        plan_ms=st.plan_seconds * 1e3,
+        collate_launch_ms=st.synth_seconds * 1e3,
+        fetch_wait_ms=st.fetch_seconds * 1e3,
+        corrections_ms=st.correct_seconds * 1e3,
     )
     host["sink_other_ms"] = wall_ms - sum(host.values())
-    print("  profiled cuda CLI, host stages: " + ", ".join(
+    print(f"  profiled {what}, host stages: " + ", ".join(
         f"{k[:-3]} {v:.3f} ms" for k, v in host.items()))
     if not by_name:
         print("  profiler: no device time recorded (not measured)")
@@ -279,7 +527,16 @@ def profile_e2e(workdir: str) -> dict:
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {ms:9.3f} ms  {name[:90]}")
     return dict(host, device_busy_ms=busy_ms, wall_ms=wall_ms,
-                idle_share=1 - busy_ms / wall_ms)
+                idle_share=1 - busy_ms / wall_ms,
+                device_ms_by_name=dict(sorted(by_name.items(),
+                                              key=lambda kv: -kv[1])[:6]))
+
+
+def profile_e2e(workdir: str) -> dict:
+    """The main path's cuda CLI run again, profiled."""
+    return profile_run(
+        "cuda CLI", lambda: run_cli("cuda", os.path.join(workdir,
+                                                         "prof.bin"))[0])
 
 
 def time_ms(fn, reps: int, warmup: int, inner: int = 1) -> float:
@@ -304,27 +561,68 @@ def time_ms(fn, reps: int, warmup: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+def bound(ops: int, nbytes: int) -> dict:
+    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=ops, bytes=nbytes)
+
+
 def kernel_times(window, out_bits: int) -> dict:
+    """K1 per window (kernel, plain, kernel, plain in turns)."""
     from gpssim_tpu_torch.ops.synth_cuda import synth_blocks_batch_cuda
     from gpssim_tpu_torch.ops.synth_torch import synth_blocks_batch_torch
 
-    packed, spec, n, n_rows, wide = window
+    packed, spec, n, n_rows, wide, _ = window
     args = on_card(packed, spec)
     kw = dict(n_rows=n_rows, num_samples=n, out_bits=out_bits, wide=wide)
     plain_a = time_ms(lambda: synth_blocks_batch_torch(args, **kw), 5, 1)
-    k_ms = time_ms(lambda: synth_blocks_batch_cuda(args, **kw), 11, 5,
-                   inner=20)
+    k_ms = time_ms(lambda: synth_blocks_batch_cuda(args, **kw, fuse_a=True),
+                   11, 5, inner=20)
     plain_b = time_ms(lambda: synth_blocks_batch_torch(args, **kw), 5, 1)
     B = packed.shape[0]
     C = args["gain_a"].shape[1]
-    ops = OPS_PER_CHANNEL_SAMPLE * C * B * n
-    nbytes = packed.nbytes + 2 * 512 * 2 + B * 2 * n * out_bits // 8
-    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return dict(
         ms=k_ms, plain_ms=statistics.median([plain_a, plain_b]),
-        bound_ms=max(t_ops, t_bytes) * 1e3,
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        ops=ops, bytes=nbytes, B=B, C=C, N=n,
+        **bound(OPS_PER_CHANNEL_SAMPLE * C * B * n,
+                packed.nbytes + 2 * 512 * 2 + B * 2 * n * out_bits // 8),
+        B=B, C=C, N=n,
+    )
+
+
+def k2_times(window, out_bits: int) -> dict:
+    """K2 per window over its packed bases, beside its plain version, and
+    the two other steps of the two-stage path: the producer and the
+    finalize."""
+    from gpssim_tpu_torch.ops.synth_cuda import stage_b_packed_cuda
+    from gpssim_tpu_torch.ops.synth_torch import (
+        finalize_rows, padded_rows, row_bases_packed, stage_b_packed_torch,
+    )
+
+    packed_args, spec, n, n_rows, wide, _ = window
+    args = on_card(packed_args, spec)
+    R = padded_rows(n_rows)
+
+    def producer():
+        return row_bases_packed(args["code_l"], args["carr_l"], args["nav"],
+                                args["ca_packed"], R, wide)
+
+    bases = producer()
+    kw = (bases, args["lane_steps"], args["gain_a"], args["gain_b"], wide)
+    rows = stage_b_packed_cuda(*kw)
+    plain_a = time_ms(lambda: stage_b_packed_torch(*kw), 5, 1)
+    k_ms = time_ms(lambda: stage_b_packed_cuda(*kw), 11, 5, inner=20)
+    plain_b = time_ms(lambda: stage_b_packed_torch(*kw), 5, 1)
+    prod_ms = time_ms(producer, 11, 2)
+    fin_ms = time_ms(lambda: finalize_rows(*rows, n, out_bits), 11, 2)
+    B, C = bases.shape[0], args["gain_a"].shape[1]
+    small = sum(args[k].numel() * 4 for k in ("lane_steps", "gain_a",
+                                               "gain_b")) + 2 * 512 * 2
+    return dict(
+        ms=k_ms, plain_ms=statistics.median([plain_a, plain_b]),
+        **bound(OPS_PER_CHANNEL_SAMPLE * C * B * R * 128,
+                bases.nbytes + small + 2 * rows[0].nbytes),
+        producer_ms=prod_ms, finalize_ms=fin_ms, B=B, C=C, R_pad=R,
     )
 
 
@@ -352,28 +650,58 @@ def main() -> int:
     print("[2] built " + ", ".join(f"{k} in {v:.1f} s"
                                    for k, v in built.items()))
 
-    # 3. kernel against plain version on the card
-    print("[3] K1 against its plain version, byte for byte")
+    # 3. kernels against their plain versions on the card
+    print("[3] K1 and K2 against their plain versions, byte for byte")
     main_window = fixture_window(3_000_000)
+    others = {
+        "3 Msps int-NCO": fixture_window(3_000_000, int_nco=True),
+        "1.2 Msps wide": fixture_window(1_200_000),
+        "6 Msps q2 digits": fixture_window(6_000_000),
+    }
     windows = [
         ("3 Msps", main_window, 8),
         ("3 Msps", main_window, 16),
-        ("3 Msps int-NCO", fixture_window(3_000_000, int_nco=True), 8),
-        ("1.2 Msps wide", fixture_window(1_200_000), 8),
-        ("6 Msps q2 digits", fixture_window(6_000_000), 16),
+        ("3 Msps int-NCO", others["3 Msps int-NCO"], 8),
+        ("1.2 Msps wide", others["1.2 Msps wide"], 8),
+        ("6 Msps q2 digits", others["6 Msps q2 digits"], 16),
     ]
-    max_err = max(compare_kernel(name, w, bits) for name, w, bits in windows)
+    err = {"K1": max(compare_kernel(name, w, bits)
+                     for name, w, bits in windows)}
+    err["K2"] = max(compare_two_stage(name, w, bits)
+                    for name, w, bits in windows)
+    for name, w in [("3 Msps", main_window)] + list(others.items()):
+        for k, e in compare_raw_rows(name, w).items():
+            err[k] = max(err[k], e)
+    from gpssim_tpu_torch.ops.synth_cuda import synth_blocks_batch_cuda
 
-    # 4. end to end through the CLI
+    packed, spec, n, n_rows, wide, _ = main_window
+    args = on_card(packed, spec)
+    for bits in (8, 16):
+        kw = dict(n_rows=n_rows, num_samples=n, out_bits=bits, wide=wide)
+        err["K2"] = max(err["K2"], max_diff(
+            "K2 two-stage against K1 on 3 Msps",
+            synth_blocks_batch_cuda(args, **kw, fuse_a=False),
+            synth_blocks_batch_cuda(args, **kw, fuse_a=True),
+            f"bits={bits}"))
+
+    # 4. end to end, each path with the launch counts set to 0 before it
     print("[4] CLI end to end, --backend cuda against --backend native")
     workdir = os.path.join(REPO, "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
         e2e = end_to_end(workdir)
         e2e["profile"] = profile_e2e(workdir)
+        print("[4b] two-stage path (GPSSIM_FUSE_A=0) against --backend "
+              "native")
+        e2e["two_stage"] = two_stage_e2e(workdir)
+        print("[4c] --fleet, then the fleet over a (1, 2) one-card mesh, "
+              "against solo --backend native runs")
+        e2e["fleet"] = fleet_e2e(workdir)
     finally:
         for f in os.listdir(workdir):
             os.remove(os.path.join(workdir, f))
+    print("[4d] make_sharded_synth(kernel='cuda') on a (1, 2) one-card mesh")
+    e2e["sharded"] = sharded_window(main_window)
 
     # 5. times per 25-block window at the main path's shape (8-bit)
     t = kernel_times(main_window, 8)
@@ -381,7 +709,23 @@ def main() -> int:
           f"8-bit): {t['ms']:.4f} ms; plain {t['plain_ms']:.3f} ms; bound "
           f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['ops']:.3e} int32 "
           f"ops, {t['bytes']} bytes); card {smi}")
+    t2 = k2_times(main_window, 8)
+    print(f"    K2 per {t2['B']}-block window (R_pad={t2['R_pad']}, "
+          f"C={t2['C']}): {t2['ms']:.4f} ms; plain {t2['plain_ms']:.3f} ms; "
+          f"bound {t2['bound_ms']:.4f} ms by {t2['bound_by']} "
+          f"({t2['ops']:.3e} int32 ops, {t2['bytes']} bytes); producer "
+          f"{t2['producer_ms']:.3f} ms; finalize (8-bit) "
+          f"{t2['finalize_ms']:.4f} ms; card {smi}")
+    print(f"    fleet aggregate x{e2e['fleet']['realtime_x_aggregate']:.2f} "
+          f"realtime ({len(FLEET_ROSTER)} members, 3 Msps, 8-bit)")
     print(f"    total {time.perf_counter() - t_start:.1f} s")
+
+    def by_path(k):
+        return {"main": e2e["launches"][k],
+                "two_stage": e2e["two_stage"]["launches"][k],
+                "fleet": e2e["fleet"]["launches"][k],
+                "fleet_mesh": e2e["fleet"]["mesh_launches"][k],
+                "sharded": e2e["sharded"]["launches"][k]}
 
     print(smi)
     print(json.dumps({
@@ -390,13 +734,29 @@ def main() -> int:
             "route": "cuda",
             "source": "gpssim_tpu_torch/csrc/synth_k1.cu",
             "replaces": "gpssim_tpu/ops/synth_pallas.py:371",
-            "launches": e2e["launches"],
-            "max_abs_err": max_err,
+            "launches": e2e["launches"]["K1"],
+            "max_abs_err": err["K1"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
+            "launches_by_path": by_path("K1"),
+        }, {
+            "name": "K2 synth_k2 (stage B over packed bases)",
+            "route": "cuda",
+            "source": "gpssim_tpu_torch/csrc/synth_k2.cu",
+            "replaces": "gpssim_tpu/ops/synth_pallas.py:356",
+            "launches": e2e["two_stage"]["launches"]["K2"],
+            "max_abs_err": err["K2"],
+            "ms": t2["ms"],
+            "plain_ms": t2["plain_ms"],
+            "bound_ms": t2["bound_ms"],
+            "bound_by": t2["bound_by"],
+            "library_ms": None,
+            "launches_by_path": by_path("K2"),
+            "producer_ms": t2["producer_ms"],
+            "finalize_ms": t2["finalize_ms"],
         }],
         "card": smi,
         "e2e": e2e,

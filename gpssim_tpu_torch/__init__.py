@@ -4,7 +4,9 @@ The port of ``gpssim_tpu`` (JAX/Pallas on a TPU) to an NVIDIA H100: the
 same host-side float64 orbital mechanics and nav-message construction
 (own copies of the JAX-free modules) feed per-0.1 s block parameters to a
 hand-written CUDA kernel that synthesizes a window of blocks per launch,
-byte for byte the output of the JAX package.
+byte for byte the output of the JAX package. Fleets of scenarios share one
+batched pipeline (fleet.py), on one device or over a mesh of devices
+(parallel/shard.py).
 """
 
 __version__ = "0.1.0"
@@ -21,7 +23,7 @@ from .config import (  # noqa: F401
 __all__ = [
     "CarrierMode", "LocationConfig", "SampleFormat", "SimConfig",
     "SynthBackend", "TargetConfig", "Simulation", "run_simulation",
-    "run_app", "save_checkpoint", "load_checkpoint",
+    "run_app", "run_fleet", "save_checkpoint", "load_checkpoint",
 ]
 
 
@@ -38,6 +40,10 @@ def __getattr__(name):  # lazy: keep `import gpssim_tpu_torch` light
         from .app import run_app
 
         return run_app
+    if name == "run_fleet":
+        from .fleet import run_fleet
+
+        return run_fleet
     if name in ("save_checkpoint", "load_checkpoint"):
         from . import checkpoint
 

@@ -5,9 +5,11 @@ gps-sim.c:35-177) and adds framework-specific execution options (synth
 backend, torch device, sample rate, output path, checkpointing). Run as
 ``python -m gpssim_tpu_torch [options]``.
 
-Realtime pacing, interactive control, the curses dashboard, fleets and
-the RINEX/almanac download are not ported yet: their flags raise
-``NotImplementedError`` (ROADMAP.md).
+``--fleet roster.csv`` runs one scenario per roster row through one
+batched pipeline (fleet.py), offline. Realtime pacing (fleets included),
+interactive control, the curses dashboard and the RINEX/almanac download
+are not ported yet: their flags raise ``NotImplementedError``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -150,7 +152,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tui", action="store_true",
                    help="Curses dashboard (not ported)")
     p.add_argument("--fleet", metavar="roster.csv",
-                   help="One scenario per roster row (not ported)")
+                   help="One scenario per roster row (lat,lon,height"
+                        "[,out_file]) through one batched pipeline; member "
+                        "files default to <out-file stem>_m<i><ext>")
     p.add_argument("--almanac-file", metavar="path",
                    help="SEM almanac file (default: almanac.sem when almanac "
                         "enabled)")
@@ -180,8 +184,7 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         flag for flag, on in (
             ("--realtime", args.realtime), ("-i/--interactive",
                                             args.interactive),
-            ("--tui", args.tui), ("--fleet", args.fleet),
-            ("-f/--use-ftp", args.use_ftp),
+            ("--tui", args.tui), ("-f/--use-ftp", args.use_ftp),
             ("-r " + args.radio, args.radio in _HARDWARE_SINKS),
         ) if on
     ]
@@ -250,8 +253,22 @@ def args_to_config(args: argparse.Namespace) -> SimConfig:
     return cfg
 
 
+def _print_fleet_summary(cfgs, stats) -> None:
+    total_blocks = sum(st.blocks for st in stats)
+    wall = max((st.wall_seconds for st in stats), default=0.0)
+    for i, (c, st) in enumerate(zip(cfgs, stats)):
+        target = (c.out_file if c.sink == "iqfile"
+                  else c.tcp_addr if c.sink == "tcp" else c.sink)
+        print(f"fleet member {i}: {st.blocks * 0.1:.1f} s of signal "
+              f"→ {target}")
+    if wall > 0:
+        print(f"fleet aggregate: {total_blocks * 0.1 / wall:.1f}x "
+              f"realtime across {len(cfgs)} members")
+
+
 def run(argv: list[str] | None = None):
-    """Parse ``argv`` and run; returns (exit code, RunStats or None)."""
+    """Parse ``argv`` and run; returns (exit code, RunStats or None), or
+    (exit code, per-member RunStats list) for a fleet."""
     parser = build_parser()
     args = parser.parse_args(argv)
     _refuse_unported(args)
@@ -263,11 +280,41 @@ def run(argv: list[str] | None = None):
               "iqfile, null, tcp", file=sys.stderr)
         return 1, None
 
+    if args.fleet:
+        if args.resume:
+            parser.error(
+                "--fleet cannot combine with --resume (a fleet checkpoint "
+                "carries its roster: resume it with --resume alone)"
+            )
+        if args.metrics_file or args.profile_dir:
+            # Refuse rather than silently skip: a fleet run the user
+            # believes is metered or profiled must not lose that without
+            # notice. (--checkpoint is supported: one file for the fleet.)
+            parser.error(
+                "--fleet does not support --metrics-file or --profile-dir; "
+                "run members through run_simulation for metered or "
+                "profiled runs"
+            )
+
     if args.resume:
-        from .checkpoint import load_checkpoint
+        from .checkpoint import (
+            is_fleet_checkpoint, load_checkpoint, load_fleet_checkpoint,
+        )
 
         # The checkpoint carries the scenario; only where to write the next
         # checkpoint and which torch device to run on come from the flags.
+        if is_fleet_checkpoint(args.resume):
+            # A fleet snapshot carries every member: resume the whole fleet.
+            from .fleet import run_fleet
+
+            cfgs, sims, _blocks = load_fleet_checkpoint(args.resume)
+            for c in cfgs:
+                c.device = args.device
+                if args.checkpoint:
+                    c.checkpoint_file = args.checkpoint
+            stats = run_fleet(cfgs, sims=sims)
+            _print_fleet_summary(cfgs, stats)
+            return 0, stats
         cfg, sim = load_checkpoint(args.resume)
         cfg.device = args.device
         if args.checkpoint:
@@ -277,6 +324,17 @@ def run(argv: list[str] | None = None):
         if cfg.nav_file is None:
             parser.error("GPS ephemeris file is not specified (-e/--nav-file)")
         sim = None
+
+    if args.fleet:
+        from .fleet import member_configs, parse_fleet_file, run_fleet
+
+        try:
+            cfgs = member_configs(cfg, parse_fleet_file(args.fleet))
+            stats = run_fleet(cfgs)
+        except ValueError as e:
+            parser.error(str(e))
+        _print_fleet_summary(cfgs, stats)
+        return 0, stats
 
     from .app import run_app
 

@@ -9,9 +9,9 @@
 // agree byte for byte.
 //
 // What bounds it on this card: integer ALU throughput. Each channel-sample
-// costs 36 int32 ALU operations in the stage-B loop below (phase
-// multiply-adds, shifts and masks, the window-word select, two gain folds
-// of two multiplies each, two sign selects) plus two shared-memory table
+// costs 36 int32 ALU operations in the stage-B loop (csrc/stage_b.cuh:
+// phase multiply-adds, shifts and masks, the window-word select, two gain
+// folds of two multiplies each, two sign selects) plus two shared-memory table
 // reads — at 12 channels and 7.5 M samples per 25-block window that is
 // ~3.2 G operations, while the output written is only 15 MB (8-bit) or
 // 30 MB (16-bit), a few microseconds of HBM bandwidth. So the design spends
@@ -27,7 +27,13 @@
 // Grid: (row tiles, blocks). A CTA owns ROWS_PER_CTA rows of 128 samples
 // of one block. It first computes its rows' per-channel bases (stage A, one
 // thread per (row, channel)), then each thread runs the channel loop for one
-// sample at a time (stage B).
+// sample at a time (stage B, csrc/stage_b.cuh, shared with K2).
+//
+// Raw mode (raw != 0) stops before the finalize, as the JAX package's
+// Pallas kernels do: it computes all n_rows rows (the tile-padded R_pad
+// rows of the raw outputs) and stores the int16 i and q planes, each
+// [B][n_rows][128], so that a channel-sharded mesh can sum the partial
+// rows before the interleave and the 8-bit shift (parallel/shard.py).
 //
 // All bit manipulation is done on uint32_t, where wraparound and shifts are
 // defined; every shift amount is kept below 32.
@@ -35,19 +41,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "stage_b.cuh"
+
 namespace {
 
-constexpr int LANES = 128;
+using namespace gpssim;
+
 constexpr int ROWS_PER_CTA = 16;
 constexpr int THREADS = 256;  // two rows of 128 lanes per pass
-constexpr int MAX_C = 16;
 constexpr int CA_WORDS = 36;
 constexpr uint32_t CA_SEQ_LEN = 1023;
 constexpr uint32_t M23 = (1u << 23) - 1;
-
-// Per-(row, channel) bases: code phase hi/lo limbs, carrier phase hi/lo
-// limbs, then the sign-folded chip-window words (2 narrow, 4 wide).
-enum { F_HI = 0, F_LO = 1, C_HI = 2, C_LO = 3, S0 = 4, N_BASE = 8 };
 
 struct K1Args {
   const int32_t* code_l;      // [B][4][C][3], block stride code_bs
@@ -64,28 +68,19 @@ __device__ __forceinline__ uint32_t shl_safe(uint32_t x, int k) {
   return k >= 32 ? 0u : (x << k);
 }
 
-// (ga*ta + ((gb*ta) >> 22)) >> 22 with int32 wraparound, as the JAX
-// program computes it (products < 2^31 for gain < 2); the arithmetic right
-// shifts act on the int32 values.
-__device__ __forceinline__ int32_t gain_trunc_mag(int32_t ta, int32_t ga,
-                                                  int32_t gb) {
-  const int32_t hi = static_cast<int32_t>(static_cast<uint32_t>(ga) *
-                                          static_cast<uint32_t>(ta));
-  const int32_t lo = static_cast<int32_t>(static_cast<uint32_t>(gb) *
-                                          static_cast<uint32_t>(ta));
-  return static_cast<int32_t>(static_cast<uint32_t>(hi) +
-                              static_cast<uint32_t>(lo >> 22)) >> 22;
-}
+// Stage-B view of the CTA's per-(row, channel) bases in shared memory.
+struct RowBases {
+  const uint32_t (*row)[N_BASE];
+  __device__ __forceinline__ uint32_t operator()(int c, int k) const {
+    return row[c][k];
+  }
+};
 
 __global__ void __launch_bounds__(THREADS)
 synth_k1_kernel(K1Args a, const int16_t* __restrict__ lut, void* out, int C,
-                int n_rows, int num_samples, int out_bits, int wide) {
-  __shared__ int16_t s_sin[512];
-  __shared__ int16_t s_cos[512];
+                int n_rows, int num_samples, int out_bits, int wide, int raw) {
+  __shared__ StageBShared s;
   __shared__ uint32_t s_ca[MAX_C][CA_WORDS];
-  __shared__ int32_t s_ls[4][MAX_C];
-  __shared__ int32_t s_ga[MAX_C];
-  __shared__ int32_t s_gb[MAX_C];
   __shared__ uint32_t s_base[ROWS_PER_CTA][MAX_C][N_BASE];
 
   const int b = blockIdx.y;
@@ -93,19 +88,11 @@ synth_k1_kernel(K1Args a, const int16_t* __restrict__ lut, void* out, int C,
   const int tid = threadIdx.x;
   const int n_win = wide ? 4 : 2;
 
-  for (int i = tid; i < 512; i += THREADS) {
-    s_sin[i] = lut[i];
-    s_cos[i] = lut[512 + i];
-  }
+  stage_b_load(s, lut, a.lane_steps + b * a.ls_bs, a.gain_a + b * a.ga_bs,
+               a.gain_b + b * a.gb_bs, C, tid, THREADS);
   const int32_t* ca = a.ca_packed + b * a.ca_bs;
   for (int i = tid; i < C * CA_WORDS; i += THREADS) {
     s_ca[i / CA_WORDS][i % CA_WORDS] = static_cast<uint32_t>(ca[i]);
-  }
-  if (tid < C) {
-    const int32_t* ls = a.lane_steps + b * a.ls_bs;
-    for (int k = 0; k < 4; ++k) s_ls[k][tid] = ls[k * C + tid];
-    s_ga[tid] = a.gain_a[b * a.ga_bs + tid];
-    s_gb[tid] = a.gain_b[b * a.gb_bs + tid];
   }
   __syncthreads();
 
@@ -178,36 +165,20 @@ synth_k1_kernel(K1Args a, const int16_t* __restrict__ lut, void* out, int C,
   for (int rr = tid / LANES; rr < rows_here; rr += THREADS / LANES) {
     const int n = (row0 + rr) * LANES + static_cast<int>(lane);
     if (n >= num_samples) continue;
-    int32_t i_acc = 0, q_acc = 0;
-    for (int c = 0; c < C; ++c) {
-      const uint32_t* base = s_base[rr][c];
-      // code: chips advanced within the row; the sign-folded window bit
-      // is the full dataBit*codeCA sign
-      const uint32_t lo = base[F_LO] + lane * static_cast<uint32_t>(s_ls[1][c]);
-      const uint32_t H =
-          base[F_HI] + lane * static_cast<uint32_t>(s_ls[0][c]) + (lo >> 23);
-      const uint32_t chip_off = H >> 23;
-      const uint32_t k = min(chip_off >> 5, static_cast<uint32_t>(n_win - 1));
-      const uint32_t spos = (base[S0 + k] >> (chip_off & 31u)) & 1u;
-      // carrier LUT index: bits 21..29 of the Q53 phase's high word (the
-      // same bits under a logical or an arithmetic shift)
-      const uint32_t klo = base[C_LO] + lane * static_cast<uint32_t>(s_ls[3][c]);
-      const uint32_t kH =
-          base[C_HI] + lane * static_cast<uint32_t>(s_ls[2][c]) + (klo >> 23);
-      const uint32_t idx = (kH >> 21) & 511u;
-      const int32_t ts = s_sin[idx];
-      const int32_t tc = s_cos[idx];
-      // exact trunc(gain * |LUT|) in split Q44, sign by select
-      const int32_t mag_i = gain_trunc_mag(abs(tc), s_ga[c], s_gb[c]);
-      const int32_t mag_q = gain_trunc_mag(abs(ts), s_ga[c], s_gb[c]);
-      const bool chip_neg = spos == 0u;
-      i_acc += (chip_neg != (tc < 0)) ? -mag_i : mag_i;
-      q_acc += (chip_neg != (ts < 0)) ? -mag_q : mag_q;
-    }
+    int32_t i_acc, q_acc;
+    stage_b_sample(s, RowBases{s_base[rr]}, lane, C, n_win, i_acc, q_acc);
     // (short) cast of the accumulator; 8-bit output is the arithmetic
     // >> 4 of the int16 value (gps.c:2841-2845)
     const int16_t i16 = static_cast<int16_t>(i_acc);
     const int16_t q16 = static_cast<int16_t>(q_acc);
+    if (raw) {
+      // the i plane, then the q plane: [2][B][n_rows][128]
+      const long long plane = static_cast<long long>(gridDim.y) * n_rows * LANES;
+      const long long o = static_cast<long long>(b) * n_rows * LANES + n;
+      static_cast<int16_t*>(out)[o] = i16;
+      static_cast<int16_t*>(out)[plane + o] = q16;
+      continue;
+    }
     const long long o = static_cast<long long>(b) * num_samples + n;
     if (out_bits == 16) {
       const uint32_t pair = static_cast<uint32_t>(static_cast<uint16_t>(i16)) |
@@ -225,17 +196,26 @@ synth_k1_kernel(K1Args a, const int16_t* __restrict__ lut, void* out, int C,
 }  // namespace
 
 // Launch K1 on `stream` for B blocks. Every pointer is device memory; `lut`
-// is int16[1024] (SIN_TABLE_512 then COS_TABLE_512); `out` is
-// int16[B][2*num_samples] (out_bits 16) or int8[B][2*num_samples] (8).
-// Returns cudaGetLastError() after the launch (0 on success), or
+// is int16[1024] (SIN_TABLE_512 then COS_TABLE_512). With raw == 0, `out`
+// is int16[B][2*num_samples] (out_bits 16) or int8[B][2*num_samples] (8)
+// and only the rows that hold samples are computed. With raw != 0, `out`
+// is int16[2][B][n_rows][128] (the i plane, then the q plane), every one
+// of the n_rows rows is computed, and num_samples and out_bits are not
+// read. Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int gpssim_k1_launch(
     const void* code_l, long long code_bs, const void* carr_l, long long carr_bs,
     const void* nav, long long nav_bs, const void* lane_steps, long long ls_bs,
     const void* ca_packed, long long ca_bs, const void* gain_a, long long ga_bs,
     const void* gain_b, long long gb_bs, const void* lut, void* out, int B,
-    int C, int n_rows, int num_samples, int out_bits, int wide, void* stream) {
-  if (B < 1 || B > 65535 || C < 1 || C > MAX_C || num_samples < 1 ||
+    int C, int n_rows, int num_samples, int out_bits, int wide, int raw,
+    void* stream) {
+  if (raw) {
+    num_samples = n_rows * LANES;
+    out_bits = 16;
+  }
+  if (B < 1 || B > 65535 || C < 1 || C > MAX_C || n_rows < 1 ||
+      num_samples < 1 ||
       static_cast<long long>(n_rows) * LANES < num_samples ||
       (out_bits != 8 && out_bits != 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -255,11 +235,12 @@ extern "C" int gpssim_k1_launch(
   a.ca_bs = ca_bs;
   a.ga_bs = ga_bs;
   a.gb_bs = gb_bs;
-  // only the rows that hold samples: the trailing partial row is masked
-  const int rows = (num_samples + LANES - 1) / LANES;
+  // finalized output: only the rows that hold samples (the trailing
+  // partial row is masked); raw output: all n_rows rows
+  const int rows = raw ? n_rows : (num_samples + LANES - 1) / LANES;
   dim3 grid((rows + ROWS_PER_CTA - 1) / ROWS_PER_CTA, B);
   synth_k1_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const int16_t*>(lut), out, C, rows, num_samples, out_bits,
-      wide);
+      wide, raw);
   return static_cast<int>(cudaGetLastError());
 }

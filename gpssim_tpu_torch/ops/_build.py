@@ -3,9 +3,10 @@
 Each source under ``gpssim_tpu_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at first use,
 into ``build/kernels/`` at the repository root, and loaded with ctypes.
-The library's file name carries a hash of its source, so an edited kernel
-is rebuilt and a stale one never loads. A missing compiler or a failed
-build raises.
+The library's file name carries a hash of its source and of every header
+under ``csrc`` that it includes, so an edited kernel or header is rebuilt
+and a stale library never loads. A missing compiler or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,12 +41,40 @@ def nvcc_path() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources() -> list[str]:
+    """Every kernel source under ``csrc``: the ``*.cu`` files."""
+    return sorted(n for n in os.listdir(CSRC) if n.endswith(".cu"))
+
+
+def _closure(source: str) -> list[str]:
+    """``source`` and the ``csrc`` headers it includes, transitively (by
+    ``#include "..."``), in the order first reached."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        with open(os.path.join(CSRC, name), "rb") as fp:
+            for inc in _INCLUDE.findall(fp.read()):
+                inc = inc.decode()
+                if os.path.exists(os.path.join(CSRC, inc)):
+                    todo.append(inc)
+    return seen
+
+
 def lib_path(source: str) -> str:
-    """Where the library built from ``csrc/<source>`` goes."""
-    with open(os.path.join(CSRC, source), "rb") as fp:
-        digest = hashlib.sha256(fp.read()).hexdigest()[:16]
+    """Where the library built from ``csrc/<source>`` goes: its name
+    hashes the source and every header it includes."""
+    h = hashlib.sha256()
+    for name in _closure(source):
+        with open(os.path.join(CSRC, name), "rb") as fp:
+            h.update(name.encode() + b"\0" + fp.read() + b"\0")
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
 def build(source: str) -> tuple[str, str]:
@@ -53,10 +83,11 @@ def build(source: str) -> tuple[str, str]:
     out = lib_path(source)
     if os.path.exists(out):
         return out, ""
+    nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)],
+        [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:

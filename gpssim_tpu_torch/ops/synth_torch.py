@@ -1,10 +1,18 @@
-"""Plain PyTorch version of the fused synthesis kernel (K1) and its finalize.
+"""Plain PyTorch versions of the synthesis kernels (K1, K2) and the finalize.
 
 The int32 counterpart of the JAX package's XLA synthesizer: the same
 fixed-point program, written as tensor operations, that the hand-written
-CUDA kernel (ops/synth_cuda.py, csrc/synth_k1.cu) computes sample by
-sample. The CPU tests compare it with the JAX package byte for byte;
-on the card it is the reference the CUDA kernel is held against.
+CUDA kernels (ops/synth_cuda.py, csrc/synth_k1.cu, csrc/synth_k2.cu)
+compute sample by sample. The CPU tests compare it with the JAX package
+byte for byte; on the card it is the reference the CUDA kernels are held
+against.
+
+Two paths give the same bytes: the fused one (``synth_blocks_batch_torch``,
+K1's plain version) and the two-stage one, where ``row_bases_packed`` (the
+producer, a torch op on the card too) packs stage A's bases into one
+(B, R_pad, 128) array and ``stage_b_packed_torch`` (K2's plain version)
+runs stage B over it. ``synth_batch_torch_raw`` stops either path before
+the finalize, at the raw int16 rows a channel-sharded mesh sums.
 
 * Stage A (``row_bases``, per row and channel): the row-start code phase
   (Q46) and carrier phase (Q53) from base-2^23 limbs with the row index
@@ -195,20 +203,15 @@ def finalize_iq(i_acc, q_acc, num_samples: int, out_bits: int = 16):
     return iq16
 
 
-def synth_blocks_batch_torch(args: dict, *, n_rows: int, num_samples: int,
-                             out_bits: int = 16, wide: bool = False):
-    """Batch of B blocks → int16[B, 2*num_samples] (int8 for 8 bits).
-
-    ``args`` holds the int32 kernel arguments with a leading block axis
-    (ops/args.py: plan_to_args, unpack_args, to_device)."""
-    bases = row_bases(
-        args["code_l"], args["carr_l"], args["nav"], args["ca_packed"],
-        n_rows, wide=wide,
-    )
-    ls = args["lane_steps"]
-    B, R, C = bases["f_hi"].shape
+def _accumulate_channels(col, lane_steps, gain_a, gain_b, shape: tuple,
+                         wide: bool):
+    """Stage B: the channel loop over per-(row, channel) bases, summed
+    into int32 (B, R, 128) accumulators. ``col(name, c)`` gives base
+    ``name`` of channel ``c`` as a (B, R, 1) column."""
+    B, R, C = shape
+    ls = lane_steps
     r = torch.arange(LANES, dtype=torch.int32, device=ls.device).view(1, 1, -1)
-    words = ["s" + "ABCD"[k] for k in range(4 if wide else 2)]
+    words = base_names(wide)[4:]
     i_acc = torch.zeros((B, R, LANES), dtype=torch.int32, device=ls.device)
     q_acc = torch.zeros_like(i_acc)
 
@@ -216,8 +219,8 @@ def synth_blocks_batch_torch(args: dict, *, n_rows: int, num_samples: int,
         return x.view(B, 1, 1)
 
     for c in range(C):
-        def rc(name):  # (B, R) base column → (B, R, 1)
-            return bases[name][:, :, c:c + 1]
+        def rc(name):
+            return col(name, c)
 
         # ---- code: chips advanced within the row; the sign-folded
         # window bit IS the full dataBit*codeCA sign ----
@@ -234,16 +237,131 @@ def synth_blocks_batch_torch(args: dict, *, n_rows: int, num_samples: int,
 
         # ---- LUT magnitudes, exact gain fold, signs by select ----
         ta_s, neg_s, ta_c, neg_c = lut_mag_neg(idx)
-        ga = blk(args["gain_a"][:, c])
-        gb = blk(args["gain_b"][:, c])
+        ga = blk(gain_a[:, c])
+        gb = blk(gain_b[:, c])
         mag_i = gain_trunc_mag(ta_c, ga, gb)
         mag_q = gain_trunc_mag(ta_s, ga, gb)
         i_acc += torch.where((spos == 0) ^ neg_c, -mag_i, mag_i)
         q_acc += torch.where((spos == 0) ^ neg_s, -mag_q, mag_q)
+    return i_acc, q_acc
 
+
+def _accumulate_bases(bases: dict, args: dict, wide: bool):
+    """Stage B over the per-name (B, R, C) bases of :func:`row_bases`."""
+    return _accumulate_channels(
+        lambda name, c: bases[name][:, :, c:c + 1], args["lane_steps"],
+        args["gain_a"], args["gain_b"], tuple(bases["f_hi"].shape), wide,
+    )
+
+
+def synth_blocks_batch_torch(args: dict, *, n_rows: int, num_samples: int,
+                             out_bits: int = 16, wide: bool = False):
+    """Batch of B blocks → int16[B, 2*num_samples] (int8 for 8 bits).
+
+    ``args`` holds the int32 kernel arguments with a leading block axis
+    (ops/args.py: plan_to_args, unpack_args, to_device)."""
+    bases = row_bases(
+        args["code_l"], args["carr_l"], args["nav"], args["ca_packed"],
+        n_rows, wide=wide,
+    )
+    i_acc, q_acc = _accumulate_bases(bases, args, wide)
+    B = i_acc.shape[0]
     return finalize_iq(
         i_acc.view(B, -1), q_acc.view(B, -1), num_samples, out_bits
     )
+
+
+# ---------------------------------------------------------------------------
+# The two-stage path: packed bases (producer) → stage B (K2) → finalize
+# ---------------------------------------------------------------------------
+
+#: Rows per tile of the raw row outputs: they hold R_pad = ⌈n_rows / TILE_R⌉
+#: · TILE_R rows, as the JAX package's Pallas kernels write them.
+TILE_R = 64
+
+_BASE_NAMES = ("f_hi", "f_lo", "c_hi", "c_lo", "sA", "sB")
+_BASE_NAMES_WIDE = _BASE_NAMES + ("sC", "sD")
+
+
+def base_names(wide: bool) -> tuple:
+    """Names of the per-(row, channel) bases, in their packed lane order."""
+    return _BASE_NAMES_WIDE if wide else _BASE_NAMES
+
+
+def padded_rows(n_rows: int) -> int:
+    """R_pad: ``n_rows`` rounded up to a whole number of TILE_R tiles."""
+    return -(-n_rows // TILE_R) * TILE_R
+
+
+def pack_row_bases(bases: dict, n_rows_pad: int, wide: bool):
+    """Per-name (B, R, C) bases → one int32 (B, n_rows_pad, 128) array,
+    name-major on the lane axis (``col = name_idx*C + c``), the lanes past
+    the last name zero and the rows past R zero. The layout K2 reads."""
+    names = base_names(wide)
+    B, R, C = bases[names[0]].shape
+    if len(names) * C > LANES:
+        raise ValueError(
+            f"{len(names)} base planes x {C} channels exceed the "
+            f"{LANES}-lane packed layout (max {LANES // len(names)} channels)"
+        )
+    out = torch.zeros((B, max(R, n_rows_pad), LANES), dtype=torch.int32,
+                      device=bases[names[0]].device)
+    for i, name in enumerate(names):
+        out[:, :R, i * C:(i + 1) * C] = bases[name]
+    return out
+
+
+def row_bases_packed(code_l, carr_l, nav, ca_packed, n_rows_pad: int,
+                     wide: bool = False):
+    """The producer of the two-stage path: int32 (B, n_rows_pad, 128)
+    packed bases, every row computed with its own row index (the padded
+    rows too, as the JAX package's ``row_bases_packed`` computes them)."""
+    bases = row_bases(code_l, carr_l, nav, ca_packed, n_rows_pad, wide=wide)
+    return pack_row_bases(bases, n_rows_pad, wide)
+
+
+def stage_b_packed_torch(packed, lane_steps, gain_a, gain_b,
+                         wide: bool = False):
+    """Plain version of K2: stage B over packed bases (B, R_pad, 128) →
+    the raw rows (i_rows, q_rows), int16 (B, R_pad, 128), each the int32
+    channel sum cast to int16."""
+    B, R, _ = packed.shape
+    C = gain_a.shape[1]
+    off = {n: i * C for i, n in enumerate(base_names(wide))}
+
+    def col(name, c):
+        return packed[:, :, off[name] + c:off[name] + c + 1]
+
+    i_acc, q_acc = _accumulate_channels(col, lane_steps, gain_a, gain_b,
+                                        (B, R, C), wide)
+    return i_acc.to(torch.int16), q_acc.to(torch.int16)
+
+
+def synth_batch_torch_raw(args: dict, *, n_rows: int, wide: bool,
+                          fuse_a: bool):
+    """Raw rows of a batch before the finalize: (i_rows, q_rows), int16
+    (B, R_pad, 128). ``fuse_a`` computes the bases per (row, channel) and
+    sums at once (the plain version of K1's raw mode); otherwise the
+    packed producer feeds :func:`stage_b_packed_torch` (that of K2). Both
+    give the same rows."""
+    n_rows_pad = padded_rows(n_rows)
+    a = (args["code_l"], args["carr_l"], args["nav"], args["ca_packed"])
+    if fuse_a:
+        bases = row_bases(*a, n_rows_pad, wide=wide)
+        i_acc, q_acc = _accumulate_bases(bases, args, wide)
+        return i_acc.to(torch.int16), q_acc.to(torch.int16)
+    packed = row_bases_packed(*a, n_rows_pad, wide=wide)
+    return stage_b_packed_torch(packed, args["lane_steps"], args["gain_a"],
+                                args["gain_b"], wide=wide)
+
+
+def finalize_rows(i_rows, q_rows, num_samples: int, out_bits: int = 16):
+    """Raw (B, R_pad, 128) rows → the interleaved int16 (int8) output of
+    the first ``num_samples`` samples of each block."""
+    B = i_rows.shape[0]
+    return finalize_iq(i_rows.reshape(B, -1)[:, :num_samples],
+                       q_rows.reshape(B, -1)[:, :num_samples],
+                       num_samples, out_bits)
 
 
 def lut_tables() -> np.ndarray:

@@ -199,16 +199,16 @@ def resolve_batch_kernel(cfg: SimConfig):
 
 
 class InFlight:
-    """One dispatched window: its host output buffer and, on a CUDA
-    device, the event recorded after the copy into it."""
+    """One dispatched window: its host output buffer and, for each CUDA
+    device that writes into it, the event recorded after its copy."""
 
-    def __init__(self, host, done=None):
+    def __init__(self, host, done=()):
         self.host = host
-        self.done = done
+        self.done = tuple(done)
 
     def result(self) -> np.ndarray:
-        if self.done is not None:
-            self.done.synchronize()
+        for event in self.done:
+            event.synchronize()
         return self.host.numpy()
 
 
@@ -251,7 +251,7 @@ def make_packed_kernel(kernel, n_rows: int, num_samples: int, bits: int,
             host_out.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
             done.record(stream)
-        return InFlight(host_out, done)
+        return InFlight(host_out, (done,))
 
     return dispatch
 

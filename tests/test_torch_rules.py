@@ -138,13 +138,13 @@ def test_wrapper_on_cpu_runs_plain_version_without_build(monkeypatch):
         6_000, 1 / 3e6,
     )
     args = to_device({k: np.asarray(v)[None] for k, v in a.items()}, "cpu")
-    before = synth_cuda.synth_blocks_batch_cuda.launches
+    before = dict(synth_cuda.launches)
     got = synth_cuda.synth_blocks_batch_cuda(args, n_rows=47,
                                              num_samples=6_000)
     want = synth_blocks_batch_torch(args, n_rows=47, num_samples=6_000)
     assert torch.equal(got, want)
     # CPU calls are not kernel launches
-    assert synth_cuda.synth_blocks_batch_cuda.launches == before
+    assert synth_cuda.launches == before
 
 
 def test_nvcc_missing_raises(monkeypatch):
@@ -155,3 +155,28 @@ def test_nvcc_missing_raises(monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+def test_header_edit_changes_library_name(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc header the source
+    includes: an edited header rebuilds every kernel that includes it, and
+    a stale library is never loaded."""
+    import shutil
+
+    from gpssim_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    assert _build.sources() == ["synth_k1.cu", "synth_k2.cu"]
+    for src in _build.sources():
+        assert "stage_b.cuh" in _build._closure(src)
+    before = {s: _build.lib_path(s) for s in _build.sources()}
+    assert before == {s: _build.lib_path(s) for s in _build.sources()}
+    header = csrc / "stage_b.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {s: _build.lib_path(s) for s in _build.sources()}
+    for s in before:
+        assert after[s] != before[s]
+        assert os.path.basename(after[s]).startswith(
+            f"lib{s[:-3]}-")

@@ -182,7 +182,8 @@ def test_transient_error_redispatches_same_kernel(fixtures_dir, tmp_path,
 
 
 @pytest.mark.parametrize("flag", [
-    ["--realtime"], ["-i"], ["--fleet", "roster.csv"], ["-f"], ["--tui"],
+    ["--realtime"], ["-i"], ["--fleet", "roster.csv", "--realtime"], ["-f"],
+    ["--tui"],
     ["-r", "hackrf"],
 ])
 def test_unported_options_raise(fixtures_dir, tmp_path, flag):
