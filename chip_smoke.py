@@ -11,10 +11,15 @@ raises on failure (a failed phase ends the run with a non-zero exit):
 1. Device facts: the card's name and power limit from ``nvidia-smi``.
 2. Build: every CUDA kernel under ``gpssim_tpu_torch/csrc`` (one ``nvcc``
    each) and the native host engine (strict-parity corrections), all
-   started together.
+   started together. Each kernel's registers, shared memory and spills
+   as ``nvcc -Xptxas -v`` reports them (spills fail the run) and, where
+   ``cuobjdump`` exists, the instructions, shared loads and table
+   gathers of the stage-B loop in the compiled SASS.
 3. Kernels against their plain versions, byte for byte, at the main
    path's shapes (25 fixture blocks per window: 3 Msps at 8 and 16 bits,
-   integer NCO, 1.2 Msps wide window, 6 Msps with the q2 row digit): K1
+   integer NCO, 1.2 Msps wide window, 6 Msps with the q2 row digit) and
+   on two edited copies of the 3 Msps window: 16 channels (four channels
+   repeated) and split gains where the fold wraps int32: K1
    (``synth_blocks_batch_cuda``) against ``synth_blocks_batch_torch``; the
    two-stage path (producer, K2, finalize) against its plain version; the
    raw rows of K2 and of K1's raw mode against ``synth_batch_torch_raw``;
@@ -34,9 +39,10 @@ raises on failure (a failed phase ends the run with a non-zero exit):
    [4d] ``make_sharded_synth(kernel="cuda")`` over that mesh on the
         25-block window: the bytes of K1's output.
 5. Times: K1 and K2 and their plain versions per 25-block window (CUDA
-   events, median), beside the least time the card could take; the
-   producer's and the finalize's times; the fleet's aggregate realtime
-   factor.
+   events, median), beside the least time the card could take (the
+   largest of the integer-operations, shared-memory and HBM floors, and
+   which one binds); the producer's and the finalize's times; the
+   fleet's aggregate realtime factor.
 
 It prints the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -47,6 +53,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -69,14 +77,29 @@ FLEET_SECONDS = 5
 # ceiling of an int32 instruction mix (add, logic and shifts go to the
 # INT32 pipe, IMAD to the FMA pipe); the same 128 lanes x 2 x 132 x
 # 1.98 GHz give the data sheet's 67 TFLOP/s float32.
+# Shared memory serves one 128-byte wavefront (32 banks of 4 bytes) per
+# clock per SM.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 128 * 132 * 1.98e9
-# int32 ALU operations per channel-sample in the kernels' stage-B loop
-# body (gpssim_tpu_torch/csrc/stage_b.cuh, shared by K1 and K2), counted
-# from the source: code phase 5, window word and chip sign 5, carrier
-# index 6, two |LUT| 2, two split-Q44 gain folds 10, two sign selects 6,
-# two accumulates 2.
-OPS_PER_CHANNEL_SAMPLE = 36
+SHARED_WAVEFRONTS_PER_S = 132 * 1.98e9
+# int32 operations per channel-sample of stage B: the smaller count of the
+# two loop designs the repo has had, each counted from its source. The
+# one-sample-per-thread loop: 36 (code phase 5, window word and chip sign
+# 5, carrier index 6, two |LUT| 2, two split-Q44 gain folds 10, two sign
+# selects 6, two accumulates 2). The current loop (csrc/stage_b.cuh,
+# shared by K1 and K2), 64-chip window: 16 (code phase 3: two
+# multiply-adds and the carry add; window word 2: compare, select; chip
+# sign 4: chip-field shift, funnel rotate, mask, minus one; carrier table
+# offset 5: two multiply-adds, the carry add, shift, mask; two
+# accumulating multiply-adds 2), plus one add per channel and row that
+# four samples share. The 128-chip window adds four (two more compares and
+# selects).
+OPS_PER_CHANNEL_SAMPLE = 16
+# Shared-memory wavefronts the current loop issues per warp and channel
+# (one row of 128 samples, four per thread): four 64-bit table gathers of
+# 256 bytes, two wavefronts each, and three broadcast loads of the row's
+# per-channel values (phase bases, window words, lane steps).
+WAVEFRONTS_PER_WARP_CHANNEL = 4 * 2 + 3
 
 
 def device_facts() -> str:
@@ -105,12 +128,7 @@ def build_all() -> dict:
         times[name] = time.perf_counter() - t
 
     def kernel(source):
-        def go():
-            _, report = _build.build(source)
-            if report:
-                print(report.strip(), file=sys.stderr)
-            _build.load(source)
-        return go
+        return lambda: _build.load(source)
 
     def native():
         if not seq_available():
@@ -127,6 +145,140 @@ def build_all() -> dict:
     if errors:
         raise errors[0]
     return times
+
+
+def kernel_label(symbol: str) -> str:
+    """``synth_k1 narrow`` and the like, from a mangled kernel name."""
+    m = re.search(r"(synth_k\d)_kernel(?:ILb([01])E)?", symbol)
+    if not m:
+        return symbol
+    return m.group(1) + {"0": " narrow", "1": " wide", None: ""}[m.group(2)]
+
+
+def ptxas_resources(report: str) -> dict:
+    """Per kernel of an ``nvcc -Xptxas -v`` report: registers, static
+    shared memory, stack and spill bytes."""
+    out = {}
+    for part in re.split(r"(?=ptxas info\s*: Compiling entry function)",
+                         report):
+        m = re.search(r"Compiling entry function '([^']+)'", part)
+        if not m:
+            continue
+
+        def num(pattern):
+            x = re.search(pattern, part)
+            return int(x.group(1)) if x else 0
+
+        out[kernel_label(m.group(1))] = dict(
+            registers=num(r"Used (\d+) registers"),
+            smem_bytes=num(r"(\d+) bytes smem"),
+            stack_bytes=num(r"(\d+) bytes stack frame"),
+            spill_bytes=num(r"(\d+) bytes spill stores")
+            + num(r"(\d+) bytes spill loads"),
+        )
+    return out
+
+
+def sass_functions(text: str) -> dict:
+    """``cuobjdump -sass`` output → {kernel: [(address, opcode, text)]}."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(kernel_label(m.group(1)), [])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m and cur is not None:
+            words = m.group(2).split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            cur.append((int(m.group(1), 16), op, m.group(2)))
+    return funcs
+
+
+def _regs(operands: str) -> set:
+    return set(re.findall(r"\bR(\d+)\b", operands))
+
+
+def is_gather(body: list, i: int) -> bool:
+    """Whether ``body[i]`` is a table gather of the stage-B loop: an
+    ``LDS.64`` whose value the next instruction reading it multiplies
+    into a sum (an IMAD). The loop's other 64-bit load, the window words
+    of the 64-chip window, feeds a select."""
+    op, text = body[i][1], body[i][2]
+    if not re.match(r"LDS(\.U)?\.64$", op):
+        return False
+    d = int(re.search(r"\bR(\d+)", text.split(op, 1)[1]).group(1))
+    loaded = {str(d), str(d + 1)}
+    for _, op2, text2 in body[i + 1:]:
+        srcs = text2.split(op2, 1)[1].split(",", 1)[-1]
+        if loaded & _regs(srcs):
+            return op2.startswith("IMAD")
+    return False
+
+
+def stage_b_loop(instrs: list, gather=is_gather):
+    """The stage-B channel loop in a kernel's SASS: of the innermost loops
+    (backward branches) that hold table gathers (``gather(body, i)``),
+    the one with the most. Returns its instruction count (NOPs left out),
+    shared loads, gathers and IMADs (the FMA pipe's integer
+    multiply-adds), or None."""
+    def body(lo, hi):
+        return [x for x in instrs if lo <= x[0] <= hi and x[1] != "NOP"]
+
+    def gathers(b):
+        return sum(gather(b, i) for i in range(len(b)))
+
+    loops = []
+    for addr, op, text in instrs:
+        m = re.search(r"BRA\S*\s+0x([0-9a-f]+)", text)
+        if op.startswith("BRA") and m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    loops = [lp for lp in loops if gathers(body(*lp))]
+    inner = [lp for lp in loops if not any(
+        o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    if not inner:
+        return None
+    b = body(*max(inner, key=lambda lp: gathers(body(*lp))))
+    g = gathers(b)
+    loads = sum(op.startswith("LDS") for _, op, _ in b)
+    return dict(instructions=len(b), shared_loads=loads, gathers=g,
+                imad=sum(op.startswith("IMAD") for _, op, _ in b),
+                other_per_gather=(len(b) - loads) / g)
+
+
+def kernel_resources() -> dict:
+    """[2] per kernel: the ptxas figures and, where ``cuobjdump`` exists,
+    the stage-B loop's SASS counts; raises on any spill."""
+    from gpssim_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for src in _build.sources():
+        lib, report = _build.build(src)
+        res = ptxas_resources(report)
+        sass = {}
+        if os.path.exists(tool):
+            sass = sass_functions(subprocess.run(
+                [tool, "-sass", lib], capture_output=True, text=True,
+                check=True, timeout=120).stdout)
+        for name, r in sorted(res.items()):
+            r["sass_loop"] = (stage_b_loop(sass[name]) if name in sass
+                              else None)
+            loop = r["sass_loop"]
+            print(f"    {name}: {r['registers']} registers, "
+                  f"{r['smem_bytes']} bytes static smem (+ C x 4096 "
+                  f"dynamic), {r['stack_bytes']} bytes stack, "
+                  f"{r['spill_bytes']} bytes spilled; stage-B loop SASS: "
+                  + (f"{loop['instructions']} instructions, "
+                     f"{loop['shared_loads']} shared loads, "
+                     f"{loop['gathers']} table gathers, {loop['imad']} "
+                     f"IMAD; {loop['other_per_gather']:.2f} other "
+                     "instructions per gather" if loop else
+                     "not measured (no cuobjdump or no loop found)"))
+            if r["spill_bytes"] or r["stack_bytes"]:
+                raise AssertionError(f"{name} spills to local memory")
+            out[name] = r
+    return out
 
 
 def reset_launches() -> None:
@@ -169,6 +321,32 @@ def fixture_window(sample_rate: int, int_nco: bool = False,
     n = cfg.samples_per_epoch
     return (packed, spec, n, -(-n // LANES),
             needs_wide_window(1 / sample_rate), batch.args)
+
+
+def edited_window(window, channels: int | None = None,
+                  seed: int | None = None) -> tuple:
+    """A copy of a fixture window with its channels padded to ``channels``
+    by repeating the first ones, or with every split gain replaced, from
+    ``seed``, by one where the fold's ga*|LUT| wraps int32."""
+    import numpy as np
+
+    from gpssim_tpu_torch.ops.args import pack_args
+    from gpssim_tpu_torch.parallel.shard import _CHAN_AXIS
+
+    _, _, n, n_rows, wide, args = window
+    args = {k: np.array(v) for k, v in args.items()}
+    if channels is not None:
+        idx = np.arange(channels) % args["gain_a"].shape[1]
+        args = {k: np.take(v, idx, axis=_CHAN_AXIS[k])
+                for k, v in args.items()}
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        shape = args["gain_a"].shape
+        args["gain_a"] = rng.integers(1 << 23, 1 << 31, shape).astype(
+            np.int32)
+        args["gain_b"] = rng.integers(0, 1 << 22, shape).astype(np.int32)
+    packed, spec = pack_args(args)
+    return packed, spec, n, n_rows, wide, args
 
 
 def on_card(packed, spec):
@@ -561,11 +739,16 @@ def time_ms(fn, reps: int, warmup: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def bound(ops: int, nbytes: int) -> dict:
-    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                ops=ops, bytes=nbytes)
+def bound(ops: int, nbytes: int, wavefronts: int) -> dict:
+    """The least time of the work: the largest of its floors, and which
+    binds (``operations``, ``shared`` or ``bytes``)."""
+    floors = {"operations": ops / INT32_OPS_PER_S,
+              "shared": wavefronts / SHARED_WAVEFRONTS_PER_S,
+              "bytes": nbytes / HBM_BYTES_PER_S}
+    by = max(floors, key=floors.get)
+    return dict(bound_ms=floors[by] * 1e3, bound_by=by,
+                floors_ms={k: v * 1e3 for k, v in floors.items()},
+                ops=ops, bytes=nbytes, wavefronts=wavefronts)
 
 
 def kernel_times(window, out_bits: int) -> dict:
@@ -585,7 +768,8 @@ def kernel_times(window, out_bits: int) -> dict:
     return dict(
         ms=k_ms, plain_ms=statistics.median([plain_a, plain_b]),
         **bound(OPS_PER_CHANNEL_SAMPLE * C * B * n,
-                packed.nbytes + 2 * 512 * 2 + B * 2 * n * out_bits // 8),
+                packed.nbytes + 2 * 512 * 2 + B * 2 * n * out_bits // 8,
+                WAVEFRONTS_PER_WARP_CHANNEL * C * B * n_rows),
         B=B, C=C, N=n,
     )
 
@@ -621,7 +805,8 @@ def k2_times(window, out_bits: int) -> dict:
     return dict(
         ms=k_ms, plain_ms=statistics.median([plain_a, plain_b]),
         **bound(OPS_PER_CHANNEL_SAMPLE * C * B * R * 128,
-                bases.nbytes + small + 2 * rows[0].nbytes),
+                bases.nbytes + small + 2 * rows[0].nbytes,
+                WAVEFRONTS_PER_WARP_CHANNEL * C * B * R),
         producer_ms=prod_ms, finalize_ms=fin_ms, B=B, C=C, R_pad=R,
     )
 
@@ -649,6 +834,7 @@ def main() -> int:
     built = build_all()
     print("[2] built " + ", ".join(f"{k} in {v:.1f} s"
                                    for k, v in built.items()))
+    resources = kernel_resources()
 
     # 3. kernels against their plain versions on the card
     print("[3] K1 and K2 against their plain versions, byte for byte")
@@ -658,12 +844,16 @@ def main() -> int:
         "1.2 Msps wide": fixture_window(1_200_000),
         "6 Msps q2 digits": fixture_window(6_000_000),
     }
+    others["3 Msps 16 channels"] = edited_window(main_window, channels=16)
+    others["3 Msps wrapping gains"] = edited_window(main_window, seed=7)
     windows = [
         ("3 Msps", main_window, 8),
         ("3 Msps", main_window, 16),
         ("3 Msps int-NCO", others["3 Msps int-NCO"], 8),
         ("1.2 Msps wide", others["1.2 Msps wide"], 8),
         ("6 Msps q2 digits", others["6 Msps q2 digits"], 16),
+        ("3 Msps 16 channels", others["3 Msps 16 channels"], 8),
+        ("3 Msps wrapping gains", others["3 Msps wrapping gains"], 16),
     ]
     err = {"K1": max(compare_kernel(name, w, bits)
                      for name, w, bits in windows)}
@@ -704,18 +894,24 @@ def main() -> int:
     e2e["sharded"] = sharded_window(main_window)
 
     # 5. times per 25-block window at the main path's shape (8-bit)
+    def floors(t):
+        f = t["floors_ms"]
+        return (f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+                f"(share {t['bound_ms'] / t['ms']:.3f}; floors: operations "
+                f"{f['operations']:.4f} ms for {t['ops']:.3e} int32 ops, "
+                f"shared {f['shared']:.4f} ms for {t['wavefronts']:.3e} "
+                f"wavefronts, bytes {f['bytes']:.4f} ms for {t['bytes']} "
+                "bytes)")
+
     t = kernel_times(main_window, 8)
     print(f"[5] K1 per {t['B']}-block window (N={t['N']}, C={t['C']}, "
-          f"8-bit): {t['ms']:.4f} ms; plain {t['plain_ms']:.3f} ms; bound "
-          f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['ops']:.3e} int32 "
-          f"ops, {t['bytes']} bytes); card {smi}")
+          f"8-bit): {t['ms']:.4f} ms; plain {t['plain_ms']:.3f} ms; "
+          f"{floors(t)}; card {smi}")
     t2 = k2_times(main_window, 8)
     print(f"    K2 per {t2['B']}-block window (R_pad={t2['R_pad']}, "
           f"C={t2['C']}): {t2['ms']:.4f} ms; plain {t2['plain_ms']:.3f} ms; "
-          f"bound {t2['bound_ms']:.4f} ms by {t2['bound_by']} "
-          f"({t2['ops']:.3e} int32 ops, {t2['bytes']} bytes); producer "
-          f"{t2['producer_ms']:.3f} ms; finalize (8-bit) "
-          f"{t2['finalize_ms']:.4f} ms; card {smi}")
+          f"{floors(t2)}; producer {t2['producer_ms']:.3f} ms; finalize "
+          f"(8-bit) {t2['finalize_ms']:.4f} ms; card {smi}")
     print(f"    fleet aggregate x{e2e['fleet']['realtime_x_aggregate']:.2f} "
           f"realtime ({len(FLEET_ROSTER)} members, 3 Msps, 8-bit)")
     print(f"    total {time.perf_counter() - t_start:.1f} s")
@@ -739,9 +935,14 @@ def main() -> int:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
+            # a shared-memory wavefront is an operation of the shared pipe
+            "bound_by": "bytes" if t["bound_by"] == "bytes" else "operations",
             "library_ms": None,
+            "bound_resource": t["bound_by"],
+            "floors_ms": t["floors_ms"],
             "launches_by_path": by_path("K1"),
+            "resources": {k: v for k, v in resources.items()
+                          if k.startswith("synth_k1")},
         }, {
             "name": "K2 synth_k2 (stage B over packed bases)",
             "route": "cuda",
@@ -752,9 +953,13 @@ def main() -> int:
             "ms": t2["ms"],
             "plain_ms": t2["plain_ms"],
             "bound_ms": t2["bound_ms"],
-            "bound_by": t2["bound_by"],
+            "bound_by": "bytes" if t2["bound_by"] == "bytes" else "operations",
             "library_ms": None,
+            "bound_resource": t2["bound_by"],
+            "floors_ms": t2["floors_ms"],
             "launches_by_path": by_path("K2"),
+            "resources": {k: v for k, v in resources.items()
+                          if k.startswith("synth_k2")},
             "producer_ms": t2["producer_ms"],
             "finalize_ms": t2["finalize_ms"],
         }],

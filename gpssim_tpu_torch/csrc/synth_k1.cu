@@ -8,26 +8,28 @@
 // gpssim_tpu_torch/ops/synth_torch.py:synth_blocks_batch_torch; the two
 // agree byte for byte.
 //
-// What bounds it on this card: integer ALU throughput. Each channel-sample
-// costs 36 int32 ALU operations in the stage-B loop (csrc/stage_b.cuh:
-// phase multiply-adds, shifts and masks, the window-word select, two gain
-// folds of two multiplies each, two sign selects) plus two shared-memory table
-// reads — at 12 channels and 7.5 M samples per 25-block window that is
-// ~3.2 G operations, while the output written is only 15 MB (8-bit) or
-// 30 MB (16-bit), a few microseconds of HBM bandwidth. So the design spends
-// nothing on memory traffic and as few ALU operations as it can: every
-// intermediate stays on chip (the per-(row, channel) stage-A bases, the
-// C/A words and the two 512-entry carrier tables in shared memory, the
-// channel sum in registers); the carrier magnitudes are two table reads
-// instead of the TPU kernel's two polynomials; stage A runs once per
-// (row, channel), 1/128 of the per-sample work; and the interleaved int16
-// or int8 output is written directly (one 32- or 16-bit store per
-// sample), with no separate finalize pass.
+// What bounds it on this card: the integer pipes of the stage-B loop
+// (csrc/stage_b.cuh, shared with K2): 16 integer operations and one
+// 64-bit shared gather per channel-sample, ~1.4 G operations per 25-block
+// window at 12 channels, against an output of only 15 MB (8-bit) or 30 MB
+// (16-bit), a few microseconds of HBM bandwidth. So every intermediate
+// stays on chip: the per-(row, channel) stage-A bases and the C/A words in
+// shared memory, the gain-folded signed carrier tables of the block
+// (C x 4 KB of dynamic shared memory, built by each CTA) beside them, the
+// channel sums in registers; stage A runs once per (row, channel), 1/128
+// of the per-sample work; and the interleaved int16 or int8 output is
+// written directly, with no separate finalize pass.
 //
-// Grid: (row tiles, blocks). A CTA owns ROWS_PER_CTA rows of 128 samples
-// of one block. It first computes its rows' per-channel bases (stage A, one
-// thread per (row, channel)), then each thread runs the channel loop for one
-// sample at a time (stage B, csrc/stage_b.cuh, shared with K2).
+// Grid: (row tiles, blocks). A CTA owns ROWS_PER_CTA = 16 rows of 128
+// samples of one block. It folds the block's gains into the carrier tables
+// and computes its rows' per-channel bases (stage A, one thread per (row,
+// channel)), then each warp runs the channel loop for one row at a time,
+// four samples per thread (stage B, csrc/stage_b.cuh, shared with K2).
+// Each CTA folds the tables anew, C x 512 entries for its 16 rows; 32-row
+// tiles, which fold them once for twice the rows, measured 9% faster
+// (PERF.md), but the grid stays the one the kernel was ported with. ptxas (sm_90a): 34 registers (32 for the 128-chip window), 10,752
+// bytes of static shared memory plus the C x 4 KB tables, no stack, no
+// spills: three CTAs (24 warps) per SM at 12 channels and at 16.
 //
 // Raw mode (raw != 0) stops before the finalize, as the JAX package's
 // Pallas kernels do: it computes all n_rows rows (the tile-padded R_pad
@@ -48,7 +50,7 @@ namespace {
 using namespace gpssim;
 
 constexpr int ROWS_PER_CTA = 16;
-constexpr int THREADS = 256;  // two rows of 128 lanes per pass
+constexpr int THREADS = 256;  // eight warps: eight rows per pass
 constexpr int CA_WORDS = 36;
 constexpr uint32_t CA_SEQ_LEN = 1023;
 constexpr uint32_t M23 = (1u << 23) - 1;
@@ -68,28 +70,23 @@ __device__ __forceinline__ uint32_t shl_safe(uint32_t x, int k) {
   return k >= 32 ? 0u : (x << k);
 }
 
-// Stage-B view of the CTA's per-(row, channel) bases in shared memory.
-struct RowBases {
-  const uint32_t (*row)[N_BASE];
-  __device__ __forceinline__ uint32_t operator()(int c, int k) const {
-    return row[c][k];
-  }
-};
-
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 synth_k1_kernel(K1Args a, const int16_t* __restrict__ lut, void* out, int C,
-                int n_rows, int num_samples, int out_bits, int wide, int raw) {
-  __shared__ StageBShared s;
+                int n_rows, int num_samples, int out_bits, int raw) {
+  extern __shared__ int2 s_tab[];  // [C][512], gain_table_bytes(C)
+  __shared__ int4 s_ls[MAX_C];
   __shared__ uint32_t s_ca[MAX_C][CA_WORDS];
-  __shared__ uint32_t s_base[ROWS_PER_CTA][MAX_C][N_BASE];
+  __shared__ __align__(16) uint32_t s_base[ROWS_PER_CTA][MAX_C][N_BASE];
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * ROWS_PER_CTA;
   const int tid = threadIdx.x;
-  const int n_win = wide ? 4 : 2;
+  constexpr int n_win = WIDE ? 4 : 2;
 
-  stage_b_load(s, lut, a.lane_steps + b * a.ls_bs, a.gain_a + b * a.ga_bs,
-               a.gain_b + b * a.gb_bs, C, tid, THREADS);
+  build_gain_tables(s_tab, s_ls, lut, a.lane_steps + b * a.ls_bs,
+                    a.gain_a + b * a.ga_bs, a.gain_b + b * a.gb_bs, C, tid,
+                    THREADS);
   const int32_t* ca = a.ca_packed + b * a.ca_bs;
   for (int i = tid; i < C * CA_WORDS; i += THREADS) {
     s_ca[i / CA_WORDS][i % CA_WORDS] = static_cast<uint32_t>(ca[i]);
@@ -160,35 +157,40 @@ synth_k1_kernel(K1Args a, const int16_t* __restrict__ lut, void* out, int C,
   }
   __syncthreads();
 
-  // ---------------- stage B: one sample per thread ----------------
-  const uint32_t lane = static_cast<uint32_t>(tid & (LANES - 1));
-  for (int rr = tid / LANES; rr < rows_here; rr += THREADS / LANES) {
-    const int n = (row0 + rr) * LANES + static_cast<int>(lane);
-    if (n >= num_samples) continue;
-    int32_t i_acc, q_acc;
-    stage_b_sample(s, RowBases{s_base[rr]}, lane, C, n_win, i_acc, q_acc);
-    // (short) cast of the accumulator; 8-bit output is the arithmetic
-    // >> 4 of the int16 value (gps.c:2841-2845)
-    const int16_t i16 = static_cast<int16_t>(i_acc);
-    const int16_t q16 = static_cast<int16_t>(q_acc);
-    if (raw) {
-      // the i plane, then the q plane: [2][B][n_rows][128]
-      const long long plane = static_cast<long long>(gridDim.y) * n_rows * LANES;
-      const long long o = static_cast<long long>(b) * n_rows * LANES + n;
-      static_cast<int16_t*>(out)[o] = i16;
-      static_cast<int16_t*>(out)[plane + o] = q16;
-      continue;
-    }
-    const long long o = static_cast<long long>(b) * num_samples + n;
-    if (out_bits == 16) {
-      const uint32_t pair = static_cast<uint32_t>(static_cast<uint16_t>(i16)) |
-                            (static_cast<uint32_t>(static_cast<uint16_t>(q16)) << 16);
-      static_cast<uint32_t*>(out)[o] = pair;
-    } else {
-      const uint8_t i8 = static_cast<uint8_t>(static_cast<int8_t>(i16 >> 4));
-      const uint8_t q8 = static_cast<uint8_t>(static_cast<int8_t>(q16 >> 4));
-      static_cast<uint16_t*>(out)[o] =
-          static_cast<uint16_t>(i8 | (static_cast<uint16_t>(q8) << 8));
+  // ---------------- stage B: one row per warp ----------------
+  const uint32_t lane = static_cast<uint32_t>(tid % WARP);
+  for (int rr = tid / WARP; rr < rows_here; rr += THREADS / WARP) {
+    uint32_t i_acc[SAMPLES], q_acc[SAMPLES];
+    stage_b_row<WIDE>(s_tab, s_ls, s_base[rr], lane, C, i_acc, q_acc);
+#pragma unroll
+    for (int j = 0; j < SAMPLES; ++j) {
+      const int n = (row0 + rr) * LANES + static_cast<int>(lane) + WARP * j;
+      if (n >= num_samples) continue;
+      // (short) cast of the accumulator; 8-bit output is the arithmetic
+      // >> 4 of the int16 value (gps.c:2841-2845)
+      const int16_t i16 = static_cast<int16_t>(i_acc[j]);
+      const int16_t q16 = static_cast<int16_t>(q_acc[j]);
+      if (raw) {
+        // the i plane, then the q plane: [2][B][n_rows][128]
+        const long long plane =
+            static_cast<long long>(gridDim.y) * n_rows * LANES;
+        const long long o = static_cast<long long>(b) * n_rows * LANES + n;
+        static_cast<int16_t*>(out)[o] = i16;
+        static_cast<int16_t*>(out)[plane + o] = q16;
+        continue;
+      }
+      const long long o = static_cast<long long>(b) * num_samples + n;
+      if (out_bits == 16) {
+        const uint32_t pair =
+            static_cast<uint32_t>(static_cast<uint16_t>(i16)) |
+            (static_cast<uint32_t>(static_cast<uint16_t>(q16)) << 16);
+        static_cast<uint32_t*>(out)[o] = pair;
+      } else {
+        const uint8_t i8 = static_cast<uint8_t>(static_cast<int8_t>(i16 >> 4));
+        const uint8_t q8 = static_cast<uint8_t>(static_cast<int8_t>(q16 >> 4));
+        static_cast<uint16_t*>(out)[o] =
+            static_cast<uint16_t>(i8 | (static_cast<uint16_t>(q8) << 8));
+      }
     }
   }
 }
@@ -201,8 +203,9 @@ synth_k1_kernel(K1Args a, const int16_t* __restrict__ lut, void* out, int C,
 // and only the rows that hold samples are computed. With raw != 0, `out`
 // is int16[2][B][n_rows][128] (the i plane, then the q plane), every one
 // of the n_rows rows is computed, and num_samples and out_bits are not
-// read. Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// read. Returns cudaGetLastError() after the launch (0 on success), the
+// error of a failed attribute call, or cudaErrorInvalidValue for
+// arguments the kernel does not take.
 extern "C" int gpssim_k1_launch(
     const void* code_l, long long code_bs, const void* carr_l, long long carr_bs,
     const void* nav, long long nav_bs, const void* lane_steps, long long ls_bs,
@@ -239,8 +242,19 @@ extern "C" int gpssim_k1_launch(
   // partial row is masked); raw output: all n_rows rows
   const int rows = raw ? n_rows : (num_samples + LANES - 1) / LANES;
   dim3 grid((rows + ROWS_PER_CTA - 1) / ROWS_PER_CTA, B);
-  synth_k1_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const int16_t*>(lut), out, C, rows, num_samples, out_bits,
-      wide, raw);
+  const size_t smem = gain_table_bytes(C);
+  auto kernel = wide ? synth_k1_kernel<true> : synth_k1_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const int16_t*>(lut), out, C, rows, num_samples,
+      out_bits, raw);
   return static_cast<int>(cudaGetLastError());
 }

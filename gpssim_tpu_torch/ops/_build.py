@@ -79,10 +79,15 @@ def lib_path(source: str) -> str:
 
 def build(source: str) -> tuple[str, str]:
     """Compile ``csrc/<source>`` unless its library exists; returns
-    (library path, the compiler's ptxas report — empty when cached)."""
+    (library path, the compiler's ptxas report: each kernel's registers,
+    shared memory and spills, kept beside the library)."""
     out = lib_path(source)
     if os.path.exists(out):
-        return out, ""
+        try:
+            with open(out + ".ptxas") as fp:
+                return out, fp.read()
+        except FileNotFoundError:
+            return out, ""
     nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
@@ -95,6 +100,8 @@ def build(source: str) -> tuple[str, str]:
             f"nvcc failed for {source} (rc {proc.returncode}):\n"
             f"{proc.stderr[-4000:]}"
         )
+    with open(out + ".ptxas", "w") as fp:
+        fp.write(proc.stderr)
     os.replace(tmp, out)
     return out, proc.stderr
 

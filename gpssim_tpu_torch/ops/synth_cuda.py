@@ -16,8 +16,9 @@ PyTorch version (ops/synth_torch.py), which computes the same bytes.
 :func:`synth_blocks_batch_cuda` runs K1 by default and the two-stage path
 (producer → K2 → finalize) when ``fuse_a`` is false, which
 ``GPSSIM_FUSE_A=0`` selects at call time, as in the JAX package. Both
-kernels are bound by integer ALU throughput, not memory (see the notes at
-the top of the sources).
+kernels run the same stage-B loop (``csrc/stage_b.cuh``), bound by the
+card's integer pipes, not memory (see the notes at the top of the
+sources).
 """
 
 from __future__ import annotations
