@@ -22,8 +22,12 @@ holds every kernel byte for byte against its plain version on the
 fixture's 3 Msps, integer-NCO and 1.2 Msps windows (25 blocks), and times
 K2 and K1 per 25-block window at 3 Msps (float and integer NCO) with CUDA
 events, the trees in turns (A, B, ..., B, A) so that a drift of the card
-shows. It prints the ``nvidia-smi`` line and, last, one JSON object of the
-median times. Without a CUDA device it exits non-zero.
+shows, each beside the host's time per wrapper call (where that nears
+the kernel's time, the events time the host) and the kernel's device
+time per launch from torch.profiler (``chip_smoke.device_ms``), which
+the host cannot inflate. It prints the ``nvidia-smi`` line and, last,
+one JSON object of the times and their medians. Without a CUDA device it
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -89,6 +93,24 @@ def loop_per_channel_sample(instrs: list):
                 imad=loop["imad"] / n)
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call of ``fn``, in microseconds: the enqueue alone,
+    the device not waited for. Where it nears the device time per call,
+    back-to-back launches are host-bound and the CUDA events time the
+    host, not the kernel."""
+    import time
+
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def launcher(path: str, k: str):
     fn = getattr(ctypes.CDLL(path), f"gpssim_{k}_launch")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -135,7 +157,7 @@ def main() -> int:
 
     labels = list(trees)
     turns = labels + labels[::-1]
-    times = {}
+    times, host, device = {}, {}, {}
     for wname, win, timed in (
             ("3 Msps", cs.fixture_window(3_000_000), True),
             ("3 Msps int-NCO", cs.fixture_window(3_000_000, int_nco=True),
@@ -172,14 +194,25 @@ def main() -> int:
                     print(f"{wname}: {label} {k.upper()} byte-equal")
                     continue
                 ms = cs.time_ms(calls[k], 11, 5, inner=20)
-                times.setdefault(wname, {}).setdefault(
-                    f"{k.upper()} {label}", []).append(ms)
+                us = host_us(calls[k])
+                dev = cs.device_ms(calls[k], f"synth_{k}_kernel")
+                key = f"{k.upper()} {label}"
+                for d, v in ((times, ms), (host, us), (device, dev)):
+                    d.setdefault(wname, {}).setdefault(key, []).append(v)
                 print(f"{wname}: {label} {k.upper()} {ms:.4f} ms "
-                      "(byte-equal)")
+                      f"(byte-equal; host {us:.1f} us per wrapper call; "
+                      "device " + (f"{dev:.4f} ms" if dev else
+                                   "not measured")
+                      + " per launch, profiler)")
     print(smi)
-    print(json.dumps({"card": smi, "ms": times, "median_ms": {
-        w: {k: statistics.median(v) for k, v in d.items()}
-        for w, d in times.items()}}))
+
+    def medians(d):
+        return {w: {k: statistics.median(v) for k, v in x.items()
+                    if None not in v} for w, x in d.items()}
+
+    print(json.dumps({"card": smi, "ms": times, "host_us": host,
+                      "device_ms": device, "median_ms": medians(times),
+                      "median_device_ms": medians(device)}))
     return 0
 
 

@@ -18,12 +18,17 @@ raises on failure (a failed phase ends the run with a non-zero exit):
 3. Kernels against their plain versions, byte for byte, at the main
    path's shapes (25 fixture blocks per window: 3 Msps at 8 and 16 bits,
    integer NCO, 1.2 Msps wide window, 6 Msps with the q2 row digit) and
-   on two edited copies of the 3 Msps window: 16 channels (four channels
-   repeated) and split gains where the fold wraps int32: K1
-   (``synth_blocks_batch_cuda``) against ``synth_blocks_batch_torch``; the
-   two-stage path (producer, K2, finalize) against its plain version; the
-   raw rows of K2 and of K1's raw mode against ``synth_batch_torch_raw``;
-   and K2's finalized bytes against K1's.
+   on edited copies of the 3 Msps window: 16 channels (four channels
+   repeated), split gains where the fold wraps int32, and two windows
+   that K1's persistent grid could get wrong (one block of 8 rows, fewer
+   rows than resident CTAs; 7 blocks, whose rows do not divide by the
+   CTA count): K1 (``synth_blocks_batch_cuda``) against
+   ``synth_blocks_batch_torch``; the two-stage path (producer, K2,
+   finalize) against its plain version; the raw rows of K2 and of K1's
+   raw mode against ``synth_batch_torch_raw``; and K2's finalized bytes
+   against K1's. K1's grid (resident CTAs, rows, CTAs launched, rows per
+   CTA), as its C side computes it for the launch, is printed for each of
+   those windows.
 4. End to end, each path with the kernels' launch counts set to 0 just
    before it and read just after:
    [4]  the CLI in-process on a 10 s scenario (99 blocks, 4 windows) with
@@ -39,10 +44,14 @@ raises on failure (a failed phase ends the run with a non-zero exit):
    [4d] ``make_sharded_synth(kernel="cuda")`` over that mesh on the
         25-block window: the bytes of K1's output.
 5. Times: K1 and K2 and their plain versions per 25-block window (CUDA
-   events, median), beside the least time the card could take (the
-   largest of the integer-operations, shared-memory and HBM floors, and
-   which one binds); the producer's and the finalize's times; the
-   fleet's aggregate realtime factor.
+   events, median; and each kernel's device time per launch from
+   torch.profiler, which no slowness of the host can inflate), beside
+   the least time the card could take (the largest of the
+   integer-operations, shared-memory and HBM floors, and which one
+   binds); the producer's and the finalize's times; K1's raw
+   mode at a (1, 2) mesh shard's shape (half the channels, all R_pad
+   rows), byte-checked and timed beside its bound; the fleet's aggregate
+   realtime factor.
 
 It prints the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -347,6 +356,33 @@ def edited_window(window, channels: int | None = None,
         args["gain_b"] = rng.integers(0, 1 << 22, shape).astype(np.int32)
     packed, spec = pack_args(args)
     return packed, spec, n, n_rows, wide, args
+
+
+def sliced_window(window, blocks: int, num_samples: int) -> tuple:
+    """The first ``blocks`` blocks of a fixture window, each cut to its
+    first ``num_samples`` samples."""
+    from gpssim_tpu_torch.ops.args import LANES, pack_args
+
+    wide, args = window[4], window[5]
+    args = {k: v[:blocks] for k, v in args.items()}
+    packed, spec = pack_args(args)
+    return (packed, spec, num_samples, -(-num_samples // LANES), wide,
+            args)
+
+
+def k1_grid(window, raw: bool) -> dict:
+    """K1's persistent grid on a window, finalized (8-bit) or raw, as the
+    C side computes it for the launch (``synth_cuda.k1_grid``): the CTAs
+    resident on the card, the rows, the CTAs launched and rows per CTA."""
+    from gpssim_tpu_torch.ops.synth_cuda import k1_grid as launch_grid
+    from gpssim_tpu_torch.ops.synth_torch import padded_rows
+
+    _, _, n, n_rows, wide, args = window
+    B, C = args["gain_a"].shape
+    if raw:
+        n_rows = padded_rows(n_rows)
+    return launch_grid(B, C, n_rows=n_rows, num_samples=n, out_bits=8,
+                       wide=wide, raw=raw, device=0)
 
 
 def on_card(packed, spec):
@@ -739,6 +775,31 @@ def time_ms(fn, reps: int, warmup: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, kernel: str, calls: int = 20) -> float | None:
+    """Device time per launch of the kernel whose name holds ``kernel``,
+    from torch.profiler over ``calls`` calls of ``fn``: the kernel alone,
+    however long the host takes per call (CUDA events around back-to-back
+    calls time the host once its time per call nears the kernel's). None
+    where the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in events)
+    if not n:
+        return None
+    return sum(e.self_device_time_total for e in events) / n / 1e3
+
+
 def bound(ops: int, nbytes: int, wavefronts: int) -> dict:
     """The least time of the work: the largest of its floors, and which
     binds (``operations``, ``shared`` or ``bytes``)."""
@@ -811,6 +872,44 @@ def k2_times(window, out_bits: int) -> dict:
     )
 
 
+def k1_raw_times(window) -> dict:
+    """K1's raw mode per window at a (1, 2) mesh shard's shape: half the
+    window's channels, all R_pad rows (the mesh fleet launches it once per
+    shard and window), held byte for byte against its plain version and
+    timed beside it (kernel, plain, kernel, plain in turns)."""
+    from gpssim_tpu_torch.ops.synth_cuda import synth_k1_raw
+    from gpssim_tpu_torch.ops.synth_torch import (
+        padded_rows, synth_batch_torch_raw,
+    )
+
+    C = window[5]["gain_a"].shape[1] // 2
+    packed, spec, n, n_rows, wide, _ = edited_window(window, channels=C)
+    args = on_card(packed, spec)
+
+    def plain():
+        return synth_batch_torch_raw(args, n_rows=n_rows, wide=wide,
+                                     fuse_a=True)
+
+    def kernel():
+        return synth_k1_raw(args, n_rows=n_rows, wide=wide)
+
+    B, R = packed.shape[0], padded_rows(n_rows)
+    dev_ms = device_ms(kernel, "synth_k1_kernel")
+    err = max(max_diff(f"K1 raw {plane} rows, mesh shard", g, w,
+                       f"B={B} R_pad={R} C={C}", pairs=False)
+              for plane, g, w in zip("iq", kernel(), plain()))
+    plain_a = time_ms(plain, 5, 1)
+    k_ms = time_ms(kernel, 11, 5, inner=20)
+    plain_b = time_ms(plain, 5, 1)
+    return dict(
+        ms=k_ms, plain_ms=statistics.median([plain_a, plain_b]),
+        **bound(OPS_PER_CHANNEL_SAMPLE * C * B * R * 128,
+                packed.nbytes + 2 * 512 * 2 + 2 * B * R * 128 * 2,
+                WAVEFRONTS_PER_WARP_CHANNEL * C * B * R),
+        device_ms=dev_ms, max_abs_err=err, B=B, C=C, R_pad=R,
+    )
+
+
 def main() -> int:
     import torch
 
@@ -855,6 +954,25 @@ def main() -> int:
         ("3 Msps 16 channels", others["3 Msps 16 channels"], 8),
         ("3 Msps wrapping gains", others["3 Msps wrapping gains"], 16),
     ]
+    # two windows a persistent grid can get wrong: fewer rows than
+    # resident CTAs, and B x rows not a multiple of the CTA count
+    from gpssim_tpu_torch.ops.synth_torch import padded_rows
+
+    grids = {"3 Msps": k1_grid(main_window, raw=False)}
+    few, seven = "1 block, 8 rows", "7 blocks"
+    for name, w in ((few, sliced_window(main_window, 1, 1000)),
+                    (seven, sliced_window(main_window, 7, main_window[2]))):
+        grids[name] = {mode: k1_grid(w, raw=mode == "raw")
+                       for mode in ("finalized", "raw")}
+        for mode, g in grids[name].items():
+            print(f"  K1 grid on {name} ({mode}): {g}")
+            if (g["rows"] >= g["resident"] if name == few
+                    else g["rows"] % g["resident"] == 0):
+                raise AssertionError(f"{name} ({mode}) does not test the "
+                                     f"grid's edge: {g}")
+        windows += [(name, w, 8), (name, w, 16)]
+        others[name] = w
+    print(f"  K1 grid on 3 Msps: {grids['3 Msps']}")
     err = {"K1": max(compare_kernel(name, w, bits)
                      for name, w, bits in windows)}
     err["K2"] = max(compare_two_stage(name, w, bits)
@@ -895,23 +1013,41 @@ def main() -> int:
 
     # 5. times per 25-block window at the main path's shape (8-bit)
     def floors(t):
-        f = t["floors_ms"]
+        f, dev = t["floors_ms"], t["device_ms"]
         return (f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
                 f"(share {t['bound_ms'] / t['ms']:.3f}; floors: operations "
                 f"{f['operations']:.4f} ms for {t['ops']:.3e} int32 ops, "
                 f"shared {f['shared']:.4f} ms for {t['wavefronts']:.3e} "
                 f"wavefronts, bytes {f['bytes']:.4f} ms for {t['bytes']} "
-                "bytes)")
+                "bytes); device time per launch (profiler) "
+                + (f"{dev:.4f} ms, share {t['bound_ms'] / dev:.3f}" if dev
+                   else "not measured"))
 
+    from gpssim_tpu_torch.ops.synth_cuda import stage_b_packed_cuda
+    from gpssim_tpu_torch.ops.synth_torch import row_bases_packed
+
+    kw8 = dict(n_rows=n_rows, num_samples=n, out_bits=8, wide=wide)
+    bases = row_bases_packed(args["code_l"], args["carr_l"], args["nav"],
+                             args["ca_packed"], padded_rows(n_rows), wide)
     t = kernel_times(main_window, 8)
+    t["device_ms"] = device_ms(lambda: synth_blocks_batch_cuda(
+        args, **kw8, fuse_a=True), "synth_k1_kernel")
     print(f"[5] K1 per {t['B']}-block window (N={t['N']}, C={t['C']}, "
           f"8-bit): {t['ms']:.4f} ms; plain {t['plain_ms']:.3f} ms; "
           f"{floors(t)}; card {smi}")
     t2 = k2_times(main_window, 8)
+    t2["device_ms"] = device_ms(lambda: stage_b_packed_cuda(
+        bases, args["lane_steps"], args["gain_a"], args["gain_b"], wide),
+        "synth_k2_kernel")
     print(f"    K2 per {t2['B']}-block window (R_pad={t2['R_pad']}, "
           f"C={t2['C']}): {t2['ms']:.4f} ms; plain {t2['plain_ms']:.3f} ms; "
           f"{floors(t2)}; producer {t2['producer_ms']:.3f} ms; finalize "
           f"(8-bit) {t2['finalize_ms']:.4f} ms; card {smi}")
+    t3 = k1_raw_times(main_window)
+    err["K1"] = max(err["K1"], t3["max_abs_err"])
+    print(f"    K1 raw mode per {t3['B']}-block mesh shard (R_pad="
+          f"{t3['R_pad']}, C={t3['C']}): {t3['ms']:.4f} ms; plain "
+          f"{t3['plain_ms']:.3f} ms; {floors(t3)}; card {smi}")
     print(f"    fleet aggregate x{e2e['fleet']['realtime_x_aggregate']:.2f} "
           f"realtime ({len(FLEET_ROSTER)} members, 3 Msps, 8-bit)")
     print(f"    total {time.perf_counter() - t_start:.1f} s")
@@ -943,6 +1079,11 @@ def main() -> int:
             "launches_by_path": by_path("K1"),
             "resources": {k: v for k, v in resources.items()
                           if k.startswith("synth_k1")},
+            "grid": grids,
+            "device_ms": t["device_ms"],
+            "raw_mesh_shard": {k: t3[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "floors_ms", "B", "C", "R_pad")},
         }, {
             "name": "K2 synth_k2 (stage B over packed bases)",
             "route": "cuda",
@@ -960,6 +1101,7 @@ def main() -> int:
             "launches_by_path": by_path("K2"),
             "resources": {k: v for k, v in resources.items()
                           if k.startswith("synth_k2")},
+            "device_ms": t2["device_ms"],
             "producer_ms": t2["producer_ms"],
             "finalize_ms": t2["finalize_ms"],
         }],

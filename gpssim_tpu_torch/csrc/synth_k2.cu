@@ -24,8 +24,10 @@
 // The loop reads each per-(row, channel) value once per four samples and
 // one folded table entry per sample (see stage_b.cuh).
 //
-// Grid: persistent. As many CTAs as fit on the card at once (the SM count
-// times the occupancy at this launch's shared memory), each owning one
+// Grid: persistent (csrc/persistent_grid.cuh, shared with K1). As many CTAs
+// as fit on the card at once (the SM count times the occupancy at this
+// launch's shared memory, queried once per kernel, device and channel
+// count), each owning one
 // contiguous range of the B*R_pad rows, so every CTA gets the same number
 // of rows and no wave runs part-empty. A CTA builds the gain-folded tables
 // of each block its range touches (one or two), then each warp takes one
@@ -42,10 +44,10 @@
 // two CTAs (32 warps) per SM at 12 channels and at 16, so 264 CTAs on
 // the card's 132 SMs.
 
-#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "persistent_grid.cuh"
 #include "stage_b.cuh"
 
 namespace {
@@ -168,36 +170,15 @@ extern "C" int gpssim_k2_launch(const void* packed, const void* lane_steps,
   a.ga_bs = ga_bs;
   a.gb_bs = gb_bs;
 
-  const size_t smem = gain_table_bytes(C);
   auto kernel = wide ? synth_k2_kernel<true> : synth_k2_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  }
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, smem);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-
-  // equal contiguous row ranges, one per resident CTA
   const long long total = static_cast<long long>(B) * n_rows;
-  const long long ctas =
-      std::min(total, static_cast<long long>(sms) * per_sm);
-  const long long per_cta = (total + ctas - 1) / ctas;
-  const int grid = static_cast<int>((total + per_cta - 1) / per_cta);
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  PersistentGrid g;
+  const cudaError_t err = persistent_grid(
+      reinterpret_cast<const void*>(kernel), THREADS, C, total, &g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<g.ctas, THREADS, gain_table_bytes(C),
+           static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const int16_t*>(lut), static_cast<int16_t*>(i_rows),
-      static_cast<int16_t*>(q_rows), C, n_rows, total, per_cta);
+      static_cast<int16_t*>(q_rows), C, n_rows, total, g.per_cta);
   return static_cast<int>(cudaGetLastError());
 }

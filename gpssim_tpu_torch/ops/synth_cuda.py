@@ -16,9 +16,13 @@ PyTorch version (ops/synth_torch.py), which computes the same bytes.
 :func:`synth_blocks_batch_cuda` runs K1 by default and the two-stage path
 (producer → K2 → finalize) when ``fuse_a`` is false, which
 ``GPSSIM_FUSE_A=0`` selects at call time, as in the JAX package. Both
-kernels run the same stage-B loop (``csrc/stage_b.cuh``), bound by the
-card's integer pipes, not memory (see the notes at the top of the
-sources).
+kernels run on one persistent grid (``csrc/persistent_grid.cuh``: as many
+CTAs as fit on the card, each owning one contiguous range of the rows,
+folding the gains into the carrier tables once per block it touches;
+:func:`k1_grid` reports K1's) and the same stage-B loop
+(``csrc/stage_b.cuh``), bound by the card's integer pipes, not memory.
+K1 computes each row's stage A in the warp that then runs the row. See
+the notes at the top of the sources.
 """
 
 from __future__ import annotations
@@ -73,6 +77,25 @@ def _kernel_k2():
         fn.argtypes = [p] + [p, ll] * 3 + [p, p, p] + [i] * 4 + [p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def k1_grid(B: int, C: int, *, n_rows: int, num_samples: int, out_bits: int,
+            wide: bool, raw: bool, device=None) -> dict:
+    """The persistent grid K1 launches on a CUDA ``device`` for these
+    arguments, as its C side computes it for the launch: the CTAs resident
+    at once, the rows computed over the B blocks, the CTAs launched and the
+    rows per CTA. Raises for arguments the kernel does not take."""
+    resident, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    rows, per = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        rc = load(SOURCE).gpssim_k1_grid(
+            B, C, n_rows, num_samples, out_bits, int(wide), int(raw),
+            ctypes.byref(resident), ctypes.byref(rows), ctypes.byref(ctas),
+            ctypes.byref(per))
+    if rc != 0:
+        raise RuntimeError(f"K1 grid query failed: CUDA error {rc}")
+    return dict(resident=resident.value, rows=rows.value, ctas=ctas.value,
+                rows_per_cta=per.value)
 
 
 def _lut(device: torch.device) -> torch.Tensor:

@@ -157,10 +157,9 @@ def test_nvcc_missing_raises(monkeypatch):
         _build.nvcc_path()
 
 
-def test_header_edit_changes_library_name(tmp_path, monkeypatch):
-    """A library's name hashes its source and every csrc header the source
-    includes: an edited header rebuilds every kernel that includes it, and
-    a stale library is never loaded."""
+def _edit_header(tmp_path, monkeypatch, name):
+    """Edit csrc/<name> in a copy of csrc; assert that both kernels include
+    it and that the edit changes both libraries' names."""
     import shutil
 
     from gpssim_tpu_torch.ops import _build
@@ -170,13 +169,26 @@ def test_header_edit_changes_library_name(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", str(csrc))
     assert _build.sources() == ["synth_k1.cu", "synth_k2.cu"]
     for src in _build.sources():
-        assert "stage_b.cuh" in _build._closure(src)
+        assert name in _build._closure(src)
     before = {s: _build.lib_path(s) for s in _build.sources()}
     assert before == {s: _build.lib_path(s) for s in _build.sources()}
-    header = csrc / "stage_b.cuh"
+    header = csrc / name
     header.write_text(header.read_text() + "\n// edited\n")
     after = {s: _build.lib_path(s) for s in _build.sources()}
     for s in before:
         assert after[s] != before[s]
         assert os.path.basename(after[s]).startswith(
             f"lib{s[:-3]}-")
+
+
+def test_header_edit_changes_library_name(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc header the source
+    includes: an edited header rebuilds every kernel that includes it, and
+    a stale library is never loaded."""
+    _edit_header(tmp_path, monkeypatch, "stage_b.cuh")
+
+
+def test_grid_header_edit_rebuilds_both_kernels(tmp_path, monkeypatch):
+    """K1 and K2 take their persistent grid from one header; an edit to it
+    rebuilds both."""
+    _edit_header(tmp_path, monkeypatch, "persistent_grid.cuh")

@@ -65,7 +65,15 @@ def stage_b_emulated(packed, lane_steps, gain_a, gain_b, wide):
     L = np.arange(n_names * C)
     slot = np.zeros((B, R, C, 8), _U)
     slot[:, :, L % C, L // C] = packed.view(_U)[:, :, L]
-    ls = lane_steps.view(_U)
+    return stage_b_loop(slot, lane_steps.view(_U), tab, wide)
+
+
+def stage_b_loop(slot, ls, tab, wide):
+    """stage_b_row over G groups of N rows that share a block's staged
+    data: slots uint32 (G, N, C, 8) (channel-major bases), lane steps
+    uint32 (G, 4, C), folded tables uint32 (G, C, 512, 2) → raw rows
+    (i, q), int16 (G, N, 128)."""
+    B, R, C, _ = slot.shape
     thread = np.arange(32, dtype=_U)
     b_idx = np.arange(B)[:, None, None]
     i_acc = np.zeros((B, R, 4, 32), _U)
