@@ -28,9 +28,10 @@ raises on failure (a failed phase ends the run with a non-zero exit):
    raw mode against ``synth_batch_torch_raw``; and K2's finalized bytes
    against K1's. K1's grid (resident CTAs, rows, CTAs launched, rows per
    CTA), as its C side computes it for the launch, is printed for each of
-   those windows.
+   those windows. K1 also at the windows of a paced run (3 Msps, the full
+   12-channel axis): 4 blocks of one scenario and 12 of a 3-member fleet.
 4. End to end, each path with the kernels' launch counts set to 0 just
-   before it and read just after:
+   before it and read just after (a fresh process starts at 0):
    [4]  the CLI in-process on a 10 s scenario (99 blocks, 4 windows) with
         ``--backend cuda``; its bytes must equal ``--backend native``, and
         only K1 may launch. The run is repeated under torch.profiler for
@@ -43,6 +44,20 @@ raises on failure (a failed phase ends the run with a non-zero exit):
         channel sum).
    [4d] ``make_sharded_synth(kernel="cuda")`` over that mesh on the
         25-block window: the bytes of K1's output.
+   [4e] a paced 10 s ``-r tcp --realtime`` CLI run in a fresh process
+        (``chip_smoke.py --paced-child``: CUDA's start-up and the kernel
+        library's load inside the run) to a loopback receiver: the bytes
+        received equal [4]'s native file, 0 failovers, 0 underruns, one K1
+        launch per 4-block window (25); then the same run profiled, for
+        K1's device time per launch and the device's idle share.
+   [4f] in-process, a paced 12 s run whose ``pack_args`` stalls for its
+        first 2 s: it fails over to the native engine and back on the
+        production probe margin; every block written, the bytes of
+        ``--backend native``, no probe error, K1 launched after the
+        failback.
+   [4g] a paced ``--fleet`` of [4c]'s roster for 5 s, each member equal
+        to its solo native run with no failover; then a 2-member paced
+        fleet stalled as in [4f] fails over and back, byte-equal.
 5. Times: K1 and K2 and their plain versions per 25-block window (CUDA
    events, median; and each kernel's device time per launch from
    torch.profiler, which no slowness of the host can inflate), beside
@@ -50,8 +65,8 @@ raises on failure (a failed phase ends the run with a non-zero exit):
    integer-operations, shared-memory and HBM floors, and which one
    binds); the producer's and the finalize's times; K1's raw
    mode at a (1, 2) mesh shard's shape (half the channels, all R_pad
-   rows), byte-checked and timed beside its bound; the fleet's aggregate
-   realtime factor.
+   rows), byte-checked and timed beside its bound; K1 at the two paced
+   windows of [3]; the fleet's aggregate realtime factor.
 
 It prints the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -78,6 +93,11 @@ WINDOW = 25  # blocks per launch on the main path (cfg.dispatch_blocks)
 FLEET_ROSTER = ("35.681298,139.766247,10", "40.7128,-74.0060,20",
                 "48.8584,2.2945,35")
 FLEET_SECONDS = 5
+# a paced run's window: half the FIFO depth of 8 (runner.dispatch_window)
+PACED_WINDOW = 4
+PACED_SECONDS = 10  # [4e]
+ROUNDTRIP_SECONDS = 12  # [4f]
+THROTTLE_SECONDS = 2.0  # [4f], [4g]: pack_args stalls for this long
 
 # Published peaks of one H100 SXM (NVIDIA data sheet and Hopper white
 # paper): 3.35 TB/s of HBM3; 132 SMs at a 1.98 GHz boost clock, each
@@ -304,10 +324,11 @@ def read_launches() -> dict:
 
 
 def fixture_window(sample_rate: int, int_nco: bool = False,
-                   blocks: int = WINDOW) -> tuple:
+                   blocks: int = WINDOW, compact: bool = True) -> tuple:
     """(packed int32 args, spec, num_samples, n_rows, wide, numpy args)
     for the first ``blocks`` blocks of the fixture scenario, collated as
-    the main path collates them."""
+    the main path collates them (``compact=False``: as a paced run does,
+    on the full channel axis)."""
     from gpssim_tpu_torch.config import CarrierMode, LocationConfig, SimConfig
     from gpssim_tpu_torch.ops.args import (
         LANES, collate_plans, needs_wide_window, pack_args,
@@ -324,12 +345,39 @@ def fixture_window(sample_rate: int, int_nco: bool = False,
     plans = list(Simulation(cfg).iter_plans())[:blocks]
     if len(plans) != blocks:
         raise RuntimeError(f"fixture gave {len(plans)} blocks, not {blocks}")
-    batch = collate_plans(plans, int_nco=int_nco, compact=True,
+    batch = collate_plans(plans, int_nco=int_nco, compact=compact,
                           compact_multiple=4)
     packed, spec = pack_args(batch.args)
     n = cfg.samples_per_epoch
     return (packed, spec, n, -(-n // LANES),
             needs_wide_window(1 / sample_rate), batch.args)
+
+
+def paced_fleet_window() -> tuple:
+    """The first window of a paced 3 Msps fleet of FLEET_ROSTER, as
+    ``run_fleet`` collates it: PACED_WINDOW blocks per member,
+    round-robin, on the full channel axis."""
+    import itertools
+
+    from gpssim_tpu_torch.config import LocationConfig, SimConfig
+    from gpssim_tpu_torch.fleet import _interleave_plans
+    from gpssim_tpu_torch.ops.args import (
+        LANES, collate_plans, needs_wide_window, pack_args,
+    )
+    from gpssim_tpu_torch.scenario import Simulation
+
+    sims = [Simulation(SimConfig(
+        nav_file=FIXTURE, duration_sec=(PACED_WINDOW + 1) / 10.0,
+        almanac_enable=False,
+        location=LocationConfig(*(float(v) for v in loc.split(",")))))
+        for loc in FLEET_ROSTER]
+    W = len(sims) * PACED_WINDOW
+    plans = [p for _, p in itertools.islice(_interleave_plans(sims), W)]
+    batch = collate_plans(plans, compact=False)
+    packed, spec = pack_args(batch.args)
+    n = sims[0].cfg.samples_per_epoch
+    return (packed, spec, n, -(-n // LANES), needs_wide_window(1 / 3e6),
+            batch.args)
 
 
 def edited_window(window, channels: int | None = None,
@@ -488,13 +536,14 @@ def compare_raw_rows(name: str, window) -> dict:
     }
 
 
-def run_cli(backend: str, out_file: str, extra=()) -> tuple:
+def run_cli(backend: str, out_file: str, extra=(), seconds: int = 10,
+            location: str = LOCATION) -> tuple:
     from gpssim_tpu_torch import cli
 
     argv = [
-        "-e", FIXTURE, "-d", "10", "-l", LOCATION, "--disable-almanac",
-        "-r", "iqfile", "--backend", backend, "--out-file", out_file,
-        *extra,
+        "-e", FIXTURE, "-d", str(seconds), "-l", location,
+        "--disable-almanac", "-r", "iqfile", "--backend", backend,
+        "--out-file", out_file, *extra,
     ]
     t = time.perf_counter()
     rc, stats = cli.run(argv)
@@ -701,6 +750,287 @@ def sharded_window(window) -> dict:
     max_diff("(1, 2) mesh, kernel cuda, against K1", got, want,
              f"B={got.shape[0]} N={n} launches {launches}")
     return dict(launches=launches)
+
+
+class Receiver:
+    """A loopback TCP receiver: accepts one connection and keeps every
+    byte until the sender closes it."""
+
+    def __init__(self):
+        import socket
+
+        self.srv = socket.socket()
+        self.srv.bind(("127.0.0.1", 0))
+        self.srv.listen(1)
+        self.srv.settimeout(600)
+        self.port = self.srv.getsockname()[1]
+        self.received = bytearray()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        conn, _ = self.srv.accept()
+        with conn:
+            while True:
+                data = conn.recv(1 << 16)
+                if not data:
+                    return
+                self.received.extend(data)
+
+    def join(self):
+        self._t.join(60)
+        self.srv.close()
+        if self._t.is_alive():
+            raise RuntimeError("loopback receiver did not see the stream end")
+
+
+def paced_child(argv: list, profiled: bool) -> int:
+    """The child process of [4e]: ``cli.run(argv)`` in a fresh process
+    (CUDA's start-up, the kernel library's load and build inside the
+    run), optionally under torch.profiler; prints one JSON line with the
+    run's stats, the wrappers' launch counts and, when profiled, K1's
+    device time per launch."""
+    sys.path.insert(0, REPO)
+    from gpssim_tpu_torch import cli
+
+    reset_launches()
+    t = time.perf_counter()
+    k1 = None
+    if profiled:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rc, stats = cli.run(argv)
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        events = [e for e in device if "synth_k1_kernel" in e.key]
+        n = sum(e.count for e in events)
+        if n:
+            busy = sum(e.self_device_time_total for e in device) / 1e3
+            k1 = dict(launches=n, device_ms_per_launch=sum(
+                e.self_device_time_total for e in events) / n / 1e3,
+                device_busy_ms=busy,
+                idle_share=1 - busy / (stats.wall_seconds * 1e3))
+    else:
+        rc, stats = cli.run(argv)
+    print(json.dumps(dict(
+        rc=rc, blocks=stats.blocks, wall_s=stats.wall_seconds,
+        process_wall_s=time.perf_counter() - t,
+        realtime_x=stats.realtime_factor, underruns=stats.underruns,
+        failovers=stats.failovers, failbacks=stats.failbacks,
+        events=stats.events, launches=read_launches(), k1_profiled=k1)))
+    return 0
+
+
+def run_child(argv: list, profiled: bool) -> dict:
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--paced-child",
+         json.dumps(argv), "profile" if profiled else "plain"],
+        capture_output=True, text=True, timeout=300, cwd=REPO)
+    if proc.returncode != 0:
+        raise RuntimeError(f"paced child exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def paced_e2e(workdir: str) -> dict:
+    """[4e] a paced 10 s ``-r tcp --realtime`` CLI run in a fresh process
+    to a loopback receiver: the bytes received equal [4]'s native file,
+    no failover, no underrun, one K1 launch per 4-block window. Then the
+    same run profiled, for K1's device time per launch."""
+    import math
+
+    blocks = PACED_SECONDS * 10 - 1
+    out = {}
+    for profiled in (False, True):
+        rx = Receiver()
+        res = run_child(["-e", FIXTURE, "-d", str(PACED_SECONDS), "-l",
+                         LOCATION, "--disable-almanac", "-r", "tcp",
+                         "--realtime", "--tcp-addr", f"127.0.0.1:{rx.port}",
+                         "--backend", "cuda"], profiled)
+        rx.join()
+        path = os.path.join(workdir, "paced.bin")
+        with open(path, "wb") as fp:
+            fp.write(rx.received)
+        what = "paced run" + (" (profiled)" if profiled else "")
+        files_equal(what, os.path.join(workdir, "native.bin"), path,
+                    blocks=blocks)
+        want = math.ceil(blocks / PACED_WINDOW)
+        if (res["rc"] != 0 or res["blocks"] != blocks or res["failovers"]
+                or res["underruns"] or res["launches"]["K1"] != want
+                or res["launches"]["K2"]):
+            raise AssertionError(f"{what}: {res} (expected {blocks} blocks, "
+                                 f"0 failovers, 0 underruns, K1 {want})")
+        k1 = res["k1_profiled"]
+        print(f"  {what}: {blocks} blocks, wall {res['wall_s']:.3f} s "
+              f"(process {res['process_wall_s']:.3f} s), x"
+              f"{res['realtime_x']:.4f} realtime, {res['underruns']} "
+              f"underruns, {res['failovers']} failovers, launches "
+              f"{res['launches']}; K1 device time per launch "
+              + (f"{k1['device_ms_per_launch']:.4f} ms over "
+                 f"{k1['launches']}, device busy {k1['device_busy_ms']:.3f} "
+                 f"ms, idle share {k1['idle_share']:.5f}"
+                 if k1 else "not measured" if profiled else "(next run)")
+              + "; bytes received equal to --backend native")
+        out["profiled" if profiled else "plain"] = res
+    out["launches"] = out["plain"]["launches"]
+    return out
+
+
+class Throttle:
+    """``ops.args.pack_args`` stalls 0.6 s per window (more than a paced
+    window's 0.4 s of signal) from start() for ``seconds``: a deficit on
+    the device path's host side, which the failback probe's own windows
+    go through too."""
+
+    def __init__(self, seconds: float):
+        import gpssim_tpu_torch.ops.args as args_mod
+
+        self.mod, self.real, self.seconds = args_mod, args_mod.pack_args, seconds
+        self.until = 0.0
+
+    def pack(self, args):
+        if time.perf_counter() < self.until:
+            time.sleep(0.6)
+        return self.real(args)
+
+    def __enter__(self):
+        self.until = time.perf_counter() + self.seconds
+        self.mod.pack_args = self.pack
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.pack_args = self.real
+
+
+def check_round_trip(what: str, stats) -> None:
+    probe_errors = [e for e in stats.events if "probe failed" in e]
+    if stats.failovers < 1 or stats.failbacks < 1 or probe_errors:
+        raise AssertionError(f"{what}: failovers {stats.failovers}, "
+                             f"failbacks {stats.failbacks}, events "
+                             f"{stats.events}")
+
+
+def failover_round_trip(workdir: str) -> dict:
+    """[4f] in-process: a paced 12 s 3 Msps run whose pack_args stalls for
+    its first 2 s fails over to the native engine, then fails back on the
+    production probe margin; the bytes equal --backend native, every
+    block is written and K1 launches after the failback."""
+    from gpssim_tpu_torch.config import LocationConfig, SimConfig, SynthBackend
+    from gpssim_tpu_torch.runner import DeviceProbe, run_simulation
+
+    ref = os.path.join(workdir, "native_rt.bin")
+    run_cli("native", ref, seconds=ROUNDTRIP_SECONDS)
+    lat, lon, hgt = (float(v) for v in LOCATION.split(","))
+    cfg = SimConfig(nav_file=FIXTURE, duration_sec=float(ROUNDTRIP_SECONDS),
+                    almanac_enable=False, location=LocationConfig(lat, lon,
+                                                                  hgt),
+                    backend=SynthBackend.CUDA, realtime=True,
+                    failback_probe_sec=0.5,
+                    out_file=os.path.join(workdir, "roundtrip.bin"))
+    seen = []  # (failbacks, K1 launches) at each hook call
+
+    def hook(stats, sim, plan):
+        seen.append((stats.failbacks, read_launches()["K1"]))
+
+    reset_launches()
+    with Throttle(THROTTLE_SECONDS):
+        stats = run_simulation(cfg, on_block=hook)
+    launches = read_launches()
+    check_round_trip("failover round trip", stats)
+    before = max(n for fb, n in seen if fb == 0)
+    blocks = ROUNDTRIP_SECONDS * 10 - 1
+    files_equal("failover round trip", ref, cfg.out_file, blocks=blocks)
+    if stats.blocks != blocks or launches["K1"] <= before:
+        raise AssertionError(f"failover round trip: {stats.blocks} blocks, "
+                             f"K1 {launches['K1']} launches, {before} "
+                             "before the failback")
+    print(f"  failover round trip (margin {DeviceProbe.MARGIN:g}): "
+          f"{stats.failovers} failovers, {stats.failbacks} failbacks, "
+          f"failover_latency_s {stats.failover_latency_s:.6f}, "
+          f"{stats.underruns} underruns; K1 {launches['K1']} launches, "
+          f"{launches['K1'] - before} after the failback; bytes equal to "
+          "--backend native")
+    for e in stats.events:
+        print(f"    event: {e}")
+    return dict(launches=launches, failovers=stats.failovers,
+                failbacks=stats.failbacks,
+                failover_latency_s=stats.failover_latency_s,
+                launches_after_failback=launches["K1"] - before,
+                events=stats.events, wall_s=stats.wall_seconds)
+
+
+def paced_fleet(workdir: str) -> dict:
+    """[4g] a paced ``--fleet`` of [4c]'s roster for 5 s, each member
+    equal to its solo native run with no failover; then a 2-member paced
+    fleet whose pack_args stalls for 2 s fails over and back, each member
+    equal to its solo native run."""
+    import math
+
+    from gpssim_tpu_torch import cli
+    from gpssim_tpu_torch.config import SimConfig, SynthBackend
+    from gpssim_tpu_torch.fleet import (
+        member_configs, parse_fleet_file, run_fleet,
+    )
+
+    roster = os.path.join(workdir, "roster.csv")
+    blocks = FLEET_SECONDS * 10 - 1
+    reset_launches()
+    rc, stats = cli.run(["-e", FIXTURE, "-d", str(FLEET_SECONDS),
+                         "--disable-almanac", "-r", "iqfile", "--realtime",
+                         "--backend", "cuda", "--fleet", roster,
+                         "--out-file", os.path.join(workdir, "rt.bin")])
+    launches = read_launches()
+    want = math.ceil(blocks * len(FLEET_ROSTER)
+                     / (PACED_WINDOW * len(FLEET_ROSTER)))
+    for i in range(len(FLEET_ROSTER)):
+        files_equal(f"paced fleet member {i}",
+                    os.path.join(workdir, f"solo{i}.bin"),
+                    os.path.join(workdir, f"rt_m{i}.bin"), blocks=blocks)
+    if rc or stats[0].failovers or launches["K1"] != want or launches["K2"]:
+        raise AssertionError(f"paced fleet: rc {rc}, {stats[0].failovers} "
+                             f"failovers, launches {launches} (K1 {want})")
+    wall = max(st.wall_seconds for st in stats)
+    print(f"  paced --fleet ({len(stats)} x {blocks} blocks): wall "
+          f"{wall:.3f} s, {stats[0].failovers} failovers, launches "
+          f"{launches}; every member equal to its solo native run")
+
+    two = FLEET_ROSTER[:2]
+    seconds = ROUNDTRIP_SECONDS - 4
+    solo = []
+    for i, loc in enumerate(two):
+        solo.append(os.path.join(workdir, f"solo_rt{i}.bin"))
+        run_cli("native", solo[-1], seconds=seconds, location=loc)
+    path = os.path.join(workdir, "two.csv")
+    with open(path, "w") as fp:
+        fp.write("\n".join(two) + "\n")
+    base = SimConfig(nav_file=FIXTURE, duration_sec=float(seconds),
+                     almanac_enable=False, backend=SynthBackend.CUDA,
+                     realtime=True, failback_probe_sec=0.5, sink="iqfile",
+                     out_file=os.path.join(workdir, "rtt.bin"))
+    reset_launches()
+    with Throttle(THROTTLE_SECONDS):
+        tstats = run_fleet(member_configs(base, parse_fleet_file(path)))
+    tlaunches = read_launches()
+    check_round_trip("fleet round trip", tstats[0])
+    for i, ref in enumerate(solo):
+        files_equal(f"fleet round trip member {i}", ref,
+                    os.path.join(workdir, f"rtt_m{i}.bin"),
+                    blocks=seconds * 10 - 1)
+    print(f"  2-member paced fleet round trip: {tstats[0].failovers} "
+          f"failovers, {tstats[0].failbacks} failbacks, failover_latency_s "
+          f"{tstats[0].failover_latency_s:.6f}; launches {tlaunches}; every "
+          "member equal to its solo native run")
+    return dict(launches=launches, wall_s=wall,
+                roundtrip=dict(launches=tlaunches,
+                               failovers=tstats[0].failovers,
+                               failbacks=tstats[0].failbacks,
+                               failover_latency_s=(
+                                   tstats[0].failover_latency_s),
+                               events=tstats[0].events))
 
 
 def profile_run(what: str, run) -> dict:
@@ -943,6 +1273,13 @@ def main() -> int:
         "1.2 Msps wide": fixture_window(1_200_000),
         "6 Msps q2 digits": fixture_window(6_000_000),
     }
+    # the windows of a paced run: 4 blocks of one scenario, 12 of a
+    # 3-member fleet, both on the full channel axis
+    paced = {"paced 4 blocks": fixture_window(3_000_000,
+                                              blocks=PACED_WINDOW,
+                                              compact=False),
+             "paced fleet 12 blocks": paced_fleet_window()}
+    others.update(paced)
     others["3 Msps 16 channels"] = edited_window(main_window, channels=16)
     others["3 Msps wrapping gains"] = edited_window(main_window, seed=7)
     windows = [
@@ -953,7 +1290,7 @@ def main() -> int:
         ("6 Msps q2 digits", others["6 Msps q2 digits"], 16),
         ("3 Msps 16 channels", others["3 Msps 16 channels"], 8),
         ("3 Msps wrapping gains", others["3 Msps wrapping gains"], 16),
-    ]
+    ] + [(name, w, 8) for name, w in paced.items()]
     # two windows a persistent grid can get wrong: fewer rows than
     # resident CTAs, and B x rows not a multiple of the CTA count
     from gpssim_tpu_torch.ops.synth_torch import padded_rows
@@ -972,6 +1309,9 @@ def main() -> int:
                                      f"grid's edge: {g}")
         windows += [(name, w, 8), (name, w, 16)]
         others[name] = w
+    for name, w in paced.items():
+        grids[name] = k1_grid(w, raw=False)
+        print(f"  K1 grid on {name}: {grids[name]}")
     print(f"  K1 grid on 3 Msps: {grids['3 Msps']}")
     err = {"K1": max(compare_kernel(name, w, bits)
                      for name, w, bits in windows)}
@@ -1005,11 +1345,22 @@ def main() -> int:
         print("[4c] --fleet, then the fleet over a (1, 2) one-card mesh, "
               "against solo --backend native runs")
         e2e["fleet"] = fleet_e2e(workdir)
+        print("[4d] make_sharded_synth(kernel='cuda') on a (1, 2) one-card "
+              "mesh")
+        e2e["sharded"] = sharded_window(main_window)
+        print(f"[4e] paced {PACED_SECONDS} s -r tcp --realtime in a fresh "
+              "process, against --backend native")
+        e2e["paced"] = paced_e2e(workdir)
+        print(f"[4f] failover -> failback round trip, {ROUNDTRIP_SECONDS} s "
+              "paced, pack_args stalled for the first "
+              f"{THROTTLE_SECONDS:g} s")
+        e2e["roundtrip"] = failover_round_trip(workdir)
+        print(f"[4g] paced --fleet, {FLEET_SECONDS} s, then a 2-member "
+              "fleet round trip")
+        e2e["paced_fleet"] = paced_fleet(workdir)
     finally:
         for f in os.listdir(workdir):
             os.remove(os.path.join(workdir, f))
-    print("[4d] make_sharded_synth(kernel='cuda') on a (1, 2) one-card mesh")
-    e2e["sharded"] = sharded_window(main_window)
 
     # 5. times per 25-block window at the main path's shape (8-bit)
     def floors(t):
@@ -1048,6 +1399,19 @@ def main() -> int:
     print(f"    K1 raw mode per {t3['B']}-block mesh shard (R_pad="
           f"{t3['R_pad']}, C={t3['C']}): {t3['ms']:.4f} ms; plain "
           f"{t3['plain_ms']:.3f} ms; {floors(t3)}; card {smi}")
+    rt = {}
+    for name, w in paced.items():
+        wp, wspec, wn, wrows, wwide, _ = w
+        wargs = on_card(wp, wspec)
+        rt[name] = kernel_times(w, 8)
+        rt[name]["device_ms"] = device_ms(
+            lambda: synth_blocks_batch_cuda(
+                wargs, n_rows=wrows, num_samples=wn, out_bits=8, wide=wwide,
+                fuse_a=True), "synth_k1_kernel")
+        print(f"    K1 per {name} window (B={rt[name]['B']}, C="
+              f"{rt[name]['C']}, 8-bit): {rt[name]['ms']:.4f} ms; plain "
+              f"{rt[name]['plain_ms']:.3f} ms; {floors(rt[name])}; card "
+              f"{smi}")
     print(f"    fleet aggregate x{e2e['fleet']['realtime_x_aggregate']:.2f} "
           f"realtime ({len(FLEET_ROSTER)} members, 3 Msps, 8-bit)")
     print(f"    total {time.perf_counter() - t_start:.1f} s")
@@ -1057,7 +1421,12 @@ def main() -> int:
                 "two_stage": e2e["two_stage"]["launches"][k],
                 "fleet": e2e["fleet"]["launches"][k],
                 "fleet_mesh": e2e["fleet"]["mesh_launches"][k],
-                "sharded": e2e["sharded"]["launches"][k]}
+                "sharded": e2e["sharded"]["launches"][k],
+                "paced": e2e["paced"]["launches"][k],
+                "roundtrip": e2e["roundtrip"]["launches"][k],
+                "paced_fleet": e2e["paced_fleet"]["launches"][k],
+                "fleet_roundtrip":
+                    e2e["paced_fleet"]["roundtrip"]["launches"][k]}
 
     print(smi)
     print(json.dumps({
@@ -1084,6 +1453,9 @@ def main() -> int:
             "raw_mesh_shard": {k: t3[k] for k in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "floors_ms", "B", "C", "R_pad")},
+            "paced_windows": {name: {k: v[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "floors_ms", "B", "C")} for name, v in rt.items()},
         }, {
             "name": "K2 synth_k2 (stage B over packed bases)",
             "route": "cuda",
@@ -1115,4 +1487,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--paced-child"]:
+        sys.exit(paced_child(json.loads(sys.argv[2]),
+                             sys.argv[3] == "profile"))
     sys.exit(main())

@@ -188,6 +188,22 @@ def run_app(cfg: SimConfig, sim: Simulation | None = None):
         f"(x{stats.realtime_factor:.1f} realtime)",
         file=sys.stderr,
     )
+    if cfg.realtime:
+        print(f"realtime: {stats.underruns} sink underruns, "
+              f"{stats.failovers} failovers, {stats.failbacks} failbacks",
+              file=sys.stderr)
+    # A sink that counts underruns says directly whether it starved; its
+    # wall time also streams out the FIFO's lead after the last block, so
+    # its realtime factor sits just under 1 on a healthy run.
+    counted = hasattr(sink, "underruns")
+    if cfg.realtime and (stats.underruns if counted
+                         else stats.realtime_factor < 1.0):
+        print(
+            "WARNING: output fell behind real time — a TX sink would "
+            "underrun. Usual causes: a first-run kernel build, or a slow "
+            "host<->device link.",
+            file=sys.stderr,
+        )
     if cfg.checkpoint_file:
         from .checkpoint import capture_state, write_state
 

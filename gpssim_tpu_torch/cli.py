@@ -6,9 +6,11 @@ backend, torch device, sample rate, output path, checkpointing). Run as
 ``python -m gpssim_tpu_torch [options]``.
 
 ``--fleet roster.csv`` runs one scenario per roster row through one
-batched pipeline (fleet.py), offline. Realtime pacing (fleets included),
-interactive control, the curses dashboard and the RINEX/almanac download
-are not ported yet: their flags raise ``NotImplementedError``
+batched pipeline (fleet.py). ``--realtime`` paces a run (or a fleet) at
+the wall-clock rate under the realtime supervisor, with
+``--realtime-policy`` choosing its response to a deficit. Interactive
+control, the curses dashboard, the hardware radios and the RINEX/almanac
+download are not ported yet: their flags raise ``NotImplementedError``
 (ROADMAP.md).
 """
 
@@ -148,13 +150,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Blocks per kernel launch on the cuda/torch path "
                         "(default 25)")
     p.add_argument("--realtime", action="store_true",
-                   help="Pace generation at wall-clock rate (not ported)")
+                   help="Pace generation at wall-clock rate (TX use case)")
+    p.add_argument("--realtime-policy", default="failover",
+                   choices=["failover", "fail", "warn"],
+                   help="Response to a sustained sub-1x realtime deficit: "
+                        "fail over to the native sequential engine "
+                        "(default), raise an attributed error, or log and "
+                        "keep counting")
     p.add_argument("--tui", action="store_true",
                    help="Curses dashboard (not ported)")
     p.add_argument("--fleet", metavar="roster.csv",
                    help="One scenario per roster row (lat,lon,height"
                         "[,out_file]) through one batched pipeline; member "
-                        "files default to <out-file stem>_m<i><ext>")
+                        "files default to <out-file stem>_m<i><ext>, tcp "
+                        "members stream to consecutive ports from "
+                        "--tcp-addr; with --realtime the fleet paces as "
+                        "one pipeline")
     p.add_argument("--almanac-file", metavar="path",
                    help="SEM almanac file (default: almanac.sem when almanac "
                         "enabled)")
@@ -182,8 +193,7 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args: argparse.Namespace) -> None:
     unported = [
         flag for flag, on in (
-            ("--realtime", args.realtime), ("-i/--interactive",
-                                            args.interactive),
+            ("-i/--interactive", args.interactive),
             ("--tui", args.tui), ("-f/--use-ftp", args.use_ftp),
             ("-r " + args.radio, args.radio in _HARDWARE_SINKS),
         ) if on
@@ -213,6 +223,8 @@ def args_to_config(args: argparse.Namespace) -> SimConfig:
     cfg.device = args.device
     cfg.carrier_mode = CarrierMode.INT_NCO if args.int_nco else CarrierMode.FLOAT
     cfg.parity_exact = not args.no_parity_exact
+    cfg.realtime = args.realtime
+    cfg.realtime_policy = args.realtime_policy
     cfg.out_file = args.out_file
     cfg.tcp_addr = args.tcp_addr
     cfg.checkpoint_file = args.checkpoint

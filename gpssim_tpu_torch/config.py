@@ -102,9 +102,9 @@ class SimConfig:
     device: str = "cuda"
     parity_exact: bool = True  # mirror C quirks (xyz[0] realloc etc.)
     verbose: bool = False
-    # Blocks per device dispatch for the offline (non-realtime) cuda/torch
-    # path; device compute of batch k+1 overlaps D2H + sink of batch k.
-    # Realtime/interactive runs force 1 (0.1 s control latency).
+    # Blocks per device dispatch on the cuda/torch path; device compute of
+    # batch k+1 overlaps D2H + sink of batch k. A realtime run caps it at
+    # half the FIFO depth (runner.dispatch_window).
     dispatch_blocks: int = 25
 
     # Sink

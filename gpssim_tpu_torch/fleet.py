@@ -1,5 +1,5 @@
 """Fleet mode: many independent scenarios through one batched device
-pipeline, offline.
+pipeline, offline or paced.
 
 Every block is a pure function of its plan, so blocks from different
 scenarios batch exactly like consecutive blocks of one scenario: one card
@@ -15,9 +15,12 @@ same signal-time rate; members may differ in duration, location, motion
 file and ephemeris, but share the static kernel facts (sample rate, sample
 format, carrier mode, backend, device).
 
-The counterpart of the JAX package's ``fleet.py``. Realtime fleets (paced
-streams, the supervisor and its native failover tail) are not ported yet
-and raise ``NotImplementedError`` (ROADMAP.md).
+The counterpart of the JAX package's ``fleet.py``, realtime fleets
+included (the supervisor, the whole-fleet native failover tail and the
+probed failback), without three of its faults: a failback writes the
+probed plans it holds before resuming, the tail keeps the supervisor's
+block count current, and a probe window's signal time counts only the
+members in it.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ from collections import deque
 from .config import CarrierMode, LocationConfig, SimConfig, SynthBackend
 from .io.sinks import Sink, make_configured_sink
 from .runner import (
-    DEVICE_BACKENDS, RunStats, fetch_batch, make_packed_kernel,
-    resolve_batch_kernel, resolve_device, strict_parity_enabled,
+    DEVICE_BACKENDS, DeviceProbe, RealtimeSupervisor, RunStats,
+    _make_native_writer, fetch_batch, make_packed_kernel,
+    native_until_failback, pace, prepare_device, resolve_batch_kernel,
+    resolve_device, strict_parity_enabled,
 )
 from .scenario import Simulation
 
@@ -246,23 +251,28 @@ def run_fleet(
     stay the same by the same integer-sum argument. Without it the batch
     runs on ``cfgs[0].device``.
 
-    Realtime fleets are not ported yet: they raise NotImplementedError.
+    Realtime fleets (every member sets cfg.realtime, e.g. N paced TCP
+    streams) pace the shared pipeline to wall clock on the slowest live
+    member's written signal, bound each member's lead to the FIFO depth
+    and keep the full channel axis, under the same RealtimeSupervisor as
+    a single scenario: a sustained aggregate deficit attributed to
+    synthesis fails the whole fleet over to the native sequential engine
+    (the bytes stay the same), a DeviceProbe fails it back, and
+    transport-bound deficits (some sink backlogged) are logged, never
+    failed over. The supervisor's events, failovers, failbacks and
+    failover latency are reported on member 0's stats.
     """
     _check_compatible(cfgs)
-    cfg0 = cfgs[0]
-    if cfg0.realtime:
-        raise NotImplementedError(
-            "realtime fleets are not ported to the PyTorch/CUDA package "
-            "yet; see ROADMAP.md"
-        )
     from .ops.args import collate_plans, pack_args
 
+    cfg0 = cfgs[0]
+    realtime = cfg0.realtime
     int_nco = cfg0.carrier_mode is CarrierMode.INT_NCO
     kernel, wide, n_rows, bits = resolve_batch_kernel(cfg0)
     if mesh is None:
+        device = resolve_device(cfg0)  # no card for device="cuda" raises
         packed_kernel = make_packed_kernel(
-            kernel, n_rows, cfg0.samples_per_epoch, bits, wide,
-            resolve_device(cfg0),  # no card for device="cuda" raises
+            kernel, n_rows, cfg0.samples_per_epoch, bits, wide, device,
         )
     else:
         from .parallel.shard import make_sharded_synth, pad_batch, pad_channels
@@ -306,16 +316,72 @@ def run_fleet(
     consistent = None  # last drain-time fleet snapshot
     saved_tick = 0  # last 30 s-boundary tick written to disk
 
+    def save_tick(blocks: int, snap) -> None:
+        """Write ``snap()`` at each 30 s boundary of member 0's signal."""
+        nonlocal saved_tick
+        if blocks // 300 > saved_tick:
+            saved_tick = blocks // 300
+            write_state(ckpt_path, snap())
+
     # Batch width: one full round of the fleet per dispatch, or the
     # configured dispatch window if that is larger — whichever keeps the
-    # device saturated. The launch shape is fixed after the first full
-    # batch; short tails are padded (and dropped) like the single-scenario
+    # device saturated. A realtime fleet instead bounds it so each member
+    # runs at most fifo_depth blocks ahead of its written stream with two
+    # batches in flight (the single-scenario bound, round-robin across
+    # members). The launch shape is fixed after the first full batch;
+    # short tails are padded (and dropped) like the single-scenario
     # runner's.
-    W = window if window is not None else max(cfg0.dispatch_blocks, len(cfgs))
+    if window is not None:
+        W = window
+    elif realtime:
+        W = len(cfgs) * max(1, cfg0.fifo_depth // 2)
+    else:
+        W = max(cfg0.dispatch_blocks, len(cfgs))
     if mesh is not None:
         W += (-W) % nb  # full batches divide evenly over the blocks axis
 
+    def window_dispatch(plans: list, pad: bool):
+        if pad and len(plans) < W:
+            plans = plans + [plans[-1]] * (W - len(plans))
+        # Bucketed compaction: a fleet mixes scenarios, so the batch's
+        # max-active count varies batch to batch; multiple-of-4 extents
+        # bound the distinct launch shapes. A realtime fleet keeps the
+        # full channel axis: one launch shape for the whole run.
+        batch = collate_plans(plans, int_nco=int_nco, compact=not realtime,
+                              compact_multiple=4)
+        if mesh is None:
+            packed, pspec = pack_args(batch.args)
+
+            def dispatch(p=packed, s=pspec):
+                return packed_kernel(p, s)
+        else:
+            # Short first batch (scenario set smaller than W with no later
+            # full batch): pad blocks up to the mesh multiple; padding
+            # rows are dropped at drain.
+            margs, _ = pad_batch(pad_channels(batch.args, nc), nb)
+
+            def dispatch(a=margs):
+                return sharded(a)
+
+        return dispatch
+
     stats = [RunStats() for _ in cfgs]
+    if realtime:
+        # Blocks each member will actually produce: the planner's count
+        # (a motion file shorter than duration_sec trims it below
+        # cfg.num_epochs) — a member measured against the untrimmed total
+        # would stay "live" forever and pin the fleet minimum.
+        totals = [s.numd - 1 for s in sims]
+        agg = RunStats()  # slowest-live-member view the supervisor watches
+        supervisor = RealtimeSupervisor(
+            cfg0, _FleetTransportView(sinks), agg
+        )
+        if mesh is None:
+            prepare_device(cfg0, device, W)
+        else:
+            for dev in dict.fromkeys(d for row in mesh.devices for d in row):
+                prepare_device(cfg0, dev, W // nb,
+                               channels=-(-cfg0.num_channels // nc))
     t0 = time.perf_counter()
     it = _interleave_plans(sims)
     pending: deque = deque()  # (out, redispatch, [(member, plan)], snap)
@@ -336,31 +402,9 @@ def run_fleet(
                 # Planning is a shared host pass; book it on member 0 so
                 # sum(st.plan_seconds) stays meaningful.
                 stats[0].plan_seconds += tp - ts
-                plans = [p for _, p in tagged]
-                padded = plans
-                if any_full and len(plans) < W:
-                    padded = plans + [plans[-1]] * (W - len(plans))
-                any_full = any_full or len(padded) == W
-                # Bucketed compaction: a fleet mixes scenarios, so the
-                # batch's max-active count varies batch to batch;
-                # multiple-of-4 extents bound the distinct launch shapes.
-                batch = collate_plans(padded, int_nco=int_nco, compact=True,
-                                      compact_multiple=4)
-
-                if mesh is None:
-                    packed, pspec = pack_args(batch.args)
-
-                    def dispatch(p=packed, s=pspec):
-                        return packed_kernel(p, s)
-                else:
-                    # Short first batch (scenario set smaller than W with
-                    # no later full batch): pad blocks up to the mesh
-                    # multiple; padding rows are dropped at drain.
-                    margs, _ = pad_batch(pad_channels(batch.args, nc), nb)
-
-                    def dispatch(a=margs):
-                        return sharded(a)
-
+                dispatch = window_dispatch([p for _, p in tagged],
+                                           pad=any_full)
+                any_full = any_full or len(tagged) == W
                 out = dispatch()
                 stats[0].synth_seconds += time.perf_counter() - tp
                 pending.append(
@@ -397,12 +441,49 @@ def run_fleet(
                     st.wall_seconds = time.perf_counter() - t0
                 if snap is not None:
                     consistent = snap  # matches the blocks just written
-                    tick = stats[0].blocks // 300
-                    if tick > saved_tick:
-                        saved_tick = tick
-                        write_state(ckpt_path, consistent)
+                    save_tick(stats[0].blocks, lambda: snap)
                 if on_batch is not None:
                     on_batch(stats)
+                # Pace on the slowest LIVE member and watchdog it: members
+                # that wrote their full scenario must not pin the minimum
+                # (a frozen count would grow the lag without bound and
+                # fire a spurious whole-fleet failover).
+                live = (_live_min_blocks(stats, totals) if realtime
+                        else None)
+                if live is not None:
+                    agg.blocks = live
+                    pace(live, t0, cfg0.fifo_depth)
+                if live is not None and supervisor.check(t0) == "failover":
+                    # Whole-fleet failover: write the in-flight batches'
+                    # plans natively (never fetched through the deficient
+                    # path) and carry the round-robin on the native engine
+                    # while probing the device path for failback.
+                    probe = None
+                    if cfg0.failback_probe_sec > 0:
+                        probe = DeviceProbe(
+                            lambda plans: window_dispatch(plans, True)(),
+                            W / len(cfgs), agg.events)
+                    tail_ckpt = None
+                    if fsnap is not None:
+                        def tail_ckpt(blocks):
+                            # called only with no probed plan buffered:
+                            # the live state is the written state
+                            save_tick(blocks, fsnap)
+                    failed_back, snap = _fleet_native_tail(
+                        cfgs, sinks, pending, it, stats, agg, t0,
+                        base_index, on_batch, stop, time.perf_counter(),
+                        totals, supervisor, probe, W, tail_ckpt,
+                    )
+                    if failed_back:
+                        # every plan handed out is written: resume the
+                        # batched fleet loop
+                        if fsnap is not None:
+                            consistent = fsnap()
+                        continue
+                    if snap is not None:
+                        # stopped with batches unwritten
+                        consistent, live_ok = snap, False
+                    break
             if not tagged and not pending:
                 break
             if stop is not None and stop():
@@ -412,6 +493,9 @@ def run_fleet(
                 live_ok = False
                 break
     finally:
+        # End-of-stream on every sink first (non-blocking): close() below
+        # flushes each paced sink at the DAC rate in turn, and a later
+        # sink's pacer must not count that wait as underruns.
         for s in sinks[:inited]:
             s.end_stream()
         for s in sinks[:inited]:
@@ -421,7 +505,124 @@ def run_fleet(
         # written, else the last drain-time capture.
         write_state(ckpt_path, fsnap() if live_ok else consistent)
     wall = time.perf_counter() - t0
-    for st in stats:
+    for st, s in zip(stats, sinks):
         if st.blocks:
             st.wall_seconds = wall
+        st.underruns = getattr(s, "underruns", 0)
+    if realtime:
+        # Surface the supervisor's verdicts on member 0 (the per-member
+        # stats list is the return contract).
+        stats[0].events.extend(agg.events)
+        stats[0].failovers += agg.failovers
+        stats[0].failbacks += agg.failbacks
+        if stats[0].failover_latency_s is None:
+            stats[0].failover_latency_s = agg.failover_latency_s
     return stats
+
+
+def _live_min_blocks(stats, totals) -> int | None:
+    """Slowest LIVE member's written-block count for fleet pacing and
+    lag attribution; None once every member has written its full
+    scenario (nothing left to pace or watchdog)."""
+    live = [st.blocks for st, tot in zip(stats, totals) if st.blocks < tot]
+    return min(live) if live else None
+
+
+def probe_window_blocks(tagged) -> float:
+    """Signal time, in blocks of 0.1 s, of a probe window of (member,
+    plan) pairs: round-robin over the members actually in it, so a fleet
+    whose members have finished is not judged by those members."""
+    return len(tagged) / len({member for member, _ in tagged})
+
+
+class _FleetTransportView:
+    """Aggregate sink facade for the RealtimeSupervisor: a fleet is
+    transport-bound when ANY member's sink is backlogged (that stream's
+    consumer is below the DAC rate — a synthesis failover cannot help),
+    and its underrun count is the fleet total."""
+
+    def __init__(self, sinks):
+        self._sinks = sinks
+
+    @property
+    def backlogged(self) -> bool:
+        return any(getattr(s, "backlogged", False) for s in self._sinks)
+
+    @property
+    def underruns(self) -> int:
+        return sum(getattr(s, "underruns", 0) for s in self._sinks)
+
+
+def _fleet_native_tail(
+    cfgs, sinks, pending, it, stats, agg, t0, base_index, on_batch, stop,
+    t_act, totals, supervisor, probe, window, tail_ckpt=None,
+) -> tuple[bool, dict | None]:
+    """Carry a realtime fleet on the native sequential engine after a
+    supervisor failover: first the in-flight batches' plans (device
+    results left unread), then the remaining round-robin through the
+    runner's :func:`native_until_failback` — the single-scenario failback
+    policy — paced on the slowest live member, with hooks and the tail
+    checkpoint once per fleet round.
+
+    Returns (failed_back, snap). failed_back is True once a probe proved
+    the device path healthy and every probed plan is written (the caller
+    resumes the batched fleet loop from the next unwritten plan). snap is
+    the drain-time snapshot of the written blocks when stop() ended the
+    run with batches unwritten, else None (the live state is the written
+    state). ``agg.blocks`` follows the slowest live member after every
+    write, so the supervisor's flap accounting sees the real count.
+
+    The per-block write path is the runner's _make_native_writer — one
+    writer per member, the fleet aggregate carrying the recovery latency —
+    so noise keying, accounting and the direct-int8 path cannot drift from
+    the single-scenario failover."""
+    cfg0 = cfgs[0]
+    writers = [
+        _make_native_writer(c, s, st, t0, bi, t_act, latency_stats=agg)
+        for c, s, st, bi in zip(cfgs, sinks, stats, base_index)
+    ]
+
+    while pending:
+        _out, _redispatch, done, snap = pending.popleft()
+        for member, plan in done:
+            writers[member](plan)
+        live = _live_min_blocks(stats, totals)
+        if live is not None:
+            agg.blocks = live
+            pace(live, t0, cfg0.fifo_depth)
+        if on_batch is not None:
+            on_batch(stats)
+        if stop is not None and stop():
+            return False, snap if pending else None
+
+    writes = 0
+
+    def write_item(item) -> None:
+        member, plan = item
+        writers[member](plan)
+
+    def after_item(_item, synced: bool) -> bool:
+        nonlocal writes
+        writes += 1
+        live = _live_min_blocks(stats, totals)
+        if live is not None:
+            agg.blocks = live  # current for the supervisor's flap count
+        if writes % len(cfgs):
+            return False  # the rest once per fleet round
+        if on_batch is not None:
+            on_batch(stats)
+        if stop is not None and stop():
+            return True
+        if live is not None:
+            pace(live, t0, cfg0.fifo_depth)
+        if tail_ckpt is not None and synced:
+            tail_ckpt(stats[0].blocks)
+        return False
+
+    def start_probe(tagged) -> None:
+        probe.start([p for _, p in tagged],
+                    window_blocks=probe_window_blocks(tagged))
+
+    return native_until_failback(
+        it, write_item, after_item, supervisor, agg, probe, window,
+        start_probe, items_per_tick=len(cfgs)), None

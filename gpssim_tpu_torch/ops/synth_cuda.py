@@ -109,6 +109,27 @@ def _lut(device: torch.device) -> torch.Tensor:
     return t
 
 
+def prepare(device, *, blocks: int, channels: int, n_rows: int,
+            num_samples: int, out_bits: int, wide: bool,
+            fuse_a: bool | None = None) -> None:
+    """Make the first :func:`synth_blocks_batch_cuda` call on a CUDA
+    ``device`` for these arguments cost what later ones do: load (and,
+    the first time, build) the kernel's library, copy the carrier tables
+    to the device and, for K1, make the grid query its launch makes (the
+    kernel's attributes and occupancy, cached; it loads the kernel's
+    module). Launches nothing: the launch counts stay those of the
+    calls."""
+    if fuse_a is None:
+        fuse_a = fuse_a_default()
+    _lut(device)
+    if not fuse_a:
+        _kernel_k2()
+        return
+    _kernel()
+    k1_grid(blocks, channels, n_rows=n_rows, num_samples=num_samples,
+            out_bits=out_bits, wide=wide, raw=False, device=device)
+
+
 def _check_field(name: str, t: torch.Tensor, shape: tuple, dev) -> None:
     """int32 on ``dev`` with ``shape`` and contiguous trailing dims (the
     block stride is free)."""

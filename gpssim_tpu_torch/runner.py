@@ -7,16 +7,23 @@ device-to-host copy, the strict-parity corrections and the sink write of
 one window overlap the next window's kernel. The numpy and native backends
 run block by block on the host.
 
-Realtime pacing and interactive control are not ported yet (ROADMAP.md).
+Realtime runs (``cfg.realtime``) pace the written signal to the wall clock
+with the sink FIFO's lead, cap the window at half the FIFO depth, keep the
+full channel axis (one launch shape for the whole run) and run under the
+:class:`RealtimeSupervisor`: a sustained synthesis deficit fails over to
+the native sequential engine, whose bytes are the same, and a
+:class:`DeviceProbe` fails back to the device path once it holds with
+margin. Interactive control is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
+import threading
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -43,6 +50,14 @@ class RunStats:
     fetch_seconds: float = 0.0
     correct_seconds: float = 0.0
     retries: int = 0  # windows re-dispatched after a device error
+    underruns: int = 0  # the sink's count at the end of the run (paced sinks)
+    failovers: int = 0  # realtime backend failovers (RealtimeSupervisor)
+    failbacks: int = 0  # probed returns to the device path (DeviceProbe)
+    events: list = field(default_factory=list)  # attributed runtime events
+    #: seconds from the supervisor's failover decision to the first
+    #: native-engine block landing at the sink (None until a failover
+    #: completes its first native write)
+    failover_latency_s: float | None = None
 
     @property
     def samples_per_second(self) -> float:
@@ -52,6 +67,256 @@ class RunStats:
     def realtime_factor(self) -> float:
         # One block = 0.1 s of signal.
         return (self.blocks * 0.1) / self.wall_seconds if self.wall_seconds else 0.0
+
+
+class RealtimeDeficitError(RuntimeError):
+    """A paced realtime run fell durably below 1x and the policy is
+    'fail' (or failover was impossible), or its failback probe found the
+    device path broken."""
+
+
+class RealtimeSupervisor:
+    """Realtime degradation watchdog.
+
+    The reference's only pacing mechanism is the blocking FIFO
+    (fifo.c:97-148): when the producer cannot sustain 1x the radio
+    silently starves. Here every paced run is watched for a sustained
+    production deficit (wall clock ahead of written signal by more than a
+    fraction of the FIFO's pre-render budget) and responds per
+    ``cfg.realtime_policy``:
+
+      * ``failover`` (default) — switch synthesis to the native
+        sequential C++ engine (sequential-exact, so a strict-parity
+        stream continues byte-identically) with a logged, attributed
+        event; if that engine is unavailable, escalate to ``fail``.
+      * ``fail`` — raise RealtimeDeficitError with the attribution.
+      * ``warn`` — log and keep counting (reference behavior, plus
+        attribution).
+
+    Deficits caused by the TRANSPORT (sink FIFO full — the consumer is
+    below the DAC rate) are attributed separately and never trigger a
+    synthesis failover, which could not help.
+    """
+
+    #: consecutive over-threshold checks before acting when starvation is
+    #: NOT imminent (one transient scheduling hiccup inside the lead band
+    #: must not abandon the device path)
+    GRACE_CHECKS = 2
+
+    #: act when lag exceeds this FRACTION of the FIFO pre-render budget,
+    #: while lead remains to cover the switch. Grace applies to the whole
+    #: (ACT_FRACTION*budget, budget) band; only a lag at or beyond the
+    #: FULL budget — the sink is starving NOW — skips grace.
+    ACT_FRACTION = 0.5
+
+    #: a failback that fails over AGAIN within this much written signal
+    #: (blocks of 0.1 s) is a flap: each flap doubles the failback probe
+    #: interval (capped); a failback that survives past the window resets
+    #: it.
+    FLAP_WINDOW_BLOCKS = 300
+    PROBE_BACKOFF_CAP = 8
+
+    def __init__(self, cfg: SimConfig, sink: Sink, stats: RunStats):
+        self.cfg = cfg
+        self.sink = sink
+        self.stats = stats
+        self.policy = cfg.realtime_policy
+        if self.policy not in ("failover", "fail", "warn"):
+            raise ValueError(
+                f"realtime_policy={self.policy!r}: expected failover, "
+                "fail, or warn"
+            )
+        self.failed_over = False
+        self._strikes = 0
+        self.probe_backoff = 1
+        self._last_failback_blocks: int | None = None
+
+    def note_failback(self) -> None:
+        """Record a probe-driven failback (flap accounting: the next
+        failover within FLAP_WINDOW_BLOCKS doubles the probe interval)."""
+        self.failed_over = False
+        self._strikes = 0
+        self._last_failback_blocks = self.stats.blocks
+
+    def _event(self, msg: str) -> None:
+        logger.warning("realtime: %s", msg)
+        self.stats.events.append(msg)
+
+    def check(self, t0: float, now: float | None = None) -> str | None:
+        """Call after each written block/window; returns 'failover' when
+        the caller must switch synthesis to the native engine. ``now``
+        overrides the clock sample for deterministic unit tests."""
+        if now is None:
+            now = time.perf_counter()
+        lag = (now - t0) - self.stats.blocks * 0.1
+        budget = 0.1 * self.cfg.fifo_depth
+        if lag <= budget * self.ACT_FRACTION:
+            self._strikes = 0
+            return None
+        self._strikes += 1
+        # In-band lag (below the full budget) gets the grace window
+        # whatever its growth rate; lag >= budget is starving now: act on
+        # the first strike.
+        if self._strikes < self.GRACE_CHECKS and lag < budget:
+            return None
+        self._strikes = 0
+        underruns = getattr(self.sink, "underruns", 0)
+        if getattr(self.sink, "backlogged", False):
+            msg = (
+                f"sink transport below 1x realtime: production is "
+                f"{lag:.2f}s behind wall clock with the sink FIFO full "
+                f"(transport cannot sustain the DAC byte rate)"
+            )
+            self._event(msg)
+            if self.policy == "fail":
+                raise RealtimeDeficitError(msg)
+            return None  # a synthesis failover cannot help a slow sink
+        msg = (
+            f"synthesis below 1x realtime: {lag:.2f}s behind wall clock"
+            + (f", {underruns} sink underruns" if underruns else "")
+        )
+        if self.policy == "fail":
+            self._event(msg)
+            raise RealtimeDeficitError(msg)
+        if self.policy == "warn" or self.failed_over:
+            self._event(msg)
+            return None
+        # failover
+        from .ops.synth_seq import seq_available
+
+        if not seq_available():
+            raise RealtimeDeficitError(
+                msg + "; native sequential engine unavailable, cannot "
+                "fail over (tools/build_native.sh)"
+            )
+        if self._last_failback_blocks is not None:
+            flapped = (self.stats.blocks - self._last_failback_blocks
+                       < self.FLAP_WINDOW_BLOCKS)
+            self.probe_backoff = (
+                min(self.probe_backoff * 2, self.PROBE_BACKOFF_CAP)
+                if flapped else 1
+            )
+        self.failed_over = True
+        self.stats.failovers += 1
+        self._event(
+            msg + " -> failing over to the native sequential backend"
+        )
+        return "failover"
+
+
+class DeviceProbe:
+    """Failback probe: after a RealtimeSupervisor failover, the native
+    engine carries the paced stream while this probe shadow-dispatches ONE
+    window of upcoming plans to the device and measures dispatch → result
+    wall time in a background thread (the probed plans are also written
+    natively, so the stream never depends on the probe). CONFIRM
+    consecutive windows at >= MARGIN x realtime prove the device path
+    healthy, and the runner fails back to it: block index is the only
+    state and every backend writes the same bytes.
+
+    At most one probe is in flight, so a probe never shares the device
+    path's CUDA streams with another, and none is running when the caller
+    resumes the device path (a verdict is read only once its probe has
+    finished). A probe whose dispatch or result raises is "slow", and its
+    exception is logged, recorded in ``events`` and kept in ``error``:
+    :func:`native_until_failback` ends the run with it, so a kernel that
+    fails to launch cannot hide behind the native engine.
+    """
+
+    #: a probe window must complete at this multiple of realtime —
+    #: failing back at exactly 1.0x would flap straight back into the
+    #: supervisor's deficit band
+    MARGIN = 2.0
+
+    #: consecutive healthy windows required before failing back (one
+    #: window can burst at margin on transport buffer headroom alone)
+    CONFIRM = 2
+
+    def __init__(self, dispatch, window_blocks: float,
+                 events: list | None = None):
+        self._dispatch = dispatch  # plans -> InFlight
+        self._window = window_blocks
+        self._events = events
+        self._done: threading.Event | None = None
+        self._thread: threading.Thread | None = None
+        self._dt: list = []
+        self._err: list = []
+        self._streak = 0
+        #: the exception of the last probe that raised, else None
+        self.error: BaseException | None = None
+
+    def start(self, plans, window_blocks: float | None = None) -> None:
+        """Probe a window (plans are NOT consumed — the caller still
+        writes them natively). ``window_blocks`` (signal time of the
+        window in blocks of 0.1 s) replaces the one given at construction.
+
+        All probe work — collate, pack, dispatch and the wait — runs on
+        the background thread: the caller is the thread holding the paced
+        streams, and the native writers release the GIL inside the C
+        engine, so the probe's host work interleaves instead of blocking.
+        ``dispatch`` enters its own CUDA stream context, which is per
+        thread."""
+        if window_blocks is not None:
+            self._window = window_blocks
+        done = threading.Event()
+        dt, err = self._dt, self._err = [], []
+        dispatch = self._dispatch
+
+        def run_probe():
+            try:
+                t0 = time.perf_counter()
+                dispatch(plans).result()
+                dt.append(time.perf_counter() - t0)
+            except Exception as e:  # noqa: BLE001 — recorded by poll()
+                err.append(e)
+            finally:
+                done.set()
+
+        self._done = done
+        self._thread = threading.Thread(target=run_probe, daemon=True,
+                                        name="gpssim-failback-probe")
+        self._thread.start()
+
+    def poll(self) -> str:
+        """'idle' (no probe started / previous verdict consumed),
+        'pending', 'confirm' (window healthy — start the next probe
+        immediately; CONFIRM consecutive windows prove the path),
+        'healthy' (confirmed — fail back), or 'slow'."""
+        if self._done is None:
+            return "idle"
+        if not self._done.is_set():
+            return "pending"
+        dt = self._dt[0] if self._dt else None
+        self._done = None
+        for e in self._err:
+            msg = f"device path probe failed: {type(e).__name__}: {e}"
+            logger.warning("realtime: %s", msg, exc_info=e)
+            if self._events is not None:
+                self._events.append(msg)
+            self.error = e
+        if dt is not None and dt <= self._window * 0.1 / self.MARGIN:
+            self._streak += 1
+            if self._streak >= self.CONFIRM:
+                self._streak = 0
+                return "healthy"
+            return "confirm"
+        self._streak = 0
+        return "slow"
+
+    def join(self, timeout: float | None = None) -> None:
+        """Wait for the probe in flight, if any, to finish."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+
+
+def pace(blocks: int, t0: float, fifo_depth: int) -> None:
+    """Hold written signal at most the FIFO's depth (``fifo_depth`` blocks
+    of 0.1 s) ahead of the wall clock since ``t0`` — the reference's
+    8-buffer pipeline latency (sdr.h:24). The sink's FIFO handles the
+    fine-grained backpressure; this guards the no-consumer case."""
+    ahead = blocks * 0.1 - (time.perf_counter() - t0)
+    if ahead > 0.1 * fifo_depth:
+        time.sleep(ahead - 0.1 * fifo_depth)
 
 
 def resolve_device(cfg: SimConfig):
@@ -68,6 +333,46 @@ def resolve_device(cfg: SimConfig):
             "device='cpu' (--device cpu) to run on the CPU"
         )
     return dev
+
+
+def dispatch_window(cfg: SimConfig) -> int:
+    """Blocks per launch of a single scenario. A realtime run caps it at
+    half the FIFO depth: with two windows in flight the producer then runs
+    at most ``fifo_depth`` blocks ahead of written output."""
+    window = max(1, cfg.dispatch_blocks)
+    if cfg.realtime:
+        window = max(1, min(window, cfg.fifo_depth // 2))
+    return window
+
+
+def prepare_device(cfg: SimConfig, device, blocks: int,
+                   channels: int | None = None) -> None:
+    """What a paced run's first window would otherwise pay inside the
+    paced clock, done before it starts: CUDA's start-up on ``device``,
+    the kernel library's load (and its build, the first time), the K1
+    grid query its launch makes (which loads the kernel's module) for
+    windows of ``blocks`` blocks of ``channels`` channels (default
+    ``cfg.num_channels``), and a first pinned-buffer round trip. It
+    launches no kernel. A CPU device needs none of it."""
+    if device.type != "cuda":
+        return
+    import torch
+
+    from .ops.args import LANES, needs_wide_window
+
+    bits = cfg.sample_format.value
+    n = cfg.samples_per_epoch
+    if cfg.backend is SynthBackend.CUDA:
+        from .ops.synth_cuda import prepare
+
+        prepare(device, blocks=blocks,
+                channels=channels or cfg.num_channels, n_rows=-(-n // LANES),
+                num_samples=n, out_bits=bits,
+                wide=needs_wide_window(1.0 / cfg.sample_rate))
+    host = torch.empty(blocks * 2 * n * bits // 8, dtype=torch.uint8,
+                       pin_memory=True)
+    host.copy_(host.to(device, non_blocking=True), non_blocking=True)
+    torch.cuda.synchronize(device)
 
 
 def strict_parity_enabled(cfg: SimConfig) -> bool:
@@ -123,13 +428,14 @@ def run_simulation(
     blocks.
 
     cuda/torch runs take the pipelined batched path: one kernel launch per
-    window of ``cfg.dispatch_blocks`` blocks, with the device work of
-    window k+1 overlapped against the copy back, corrections and sink
-    write of window k. numpy/native runs go block by block."""
-    if cfg.realtime or cfg.interactive:
+    window of ``cfg.dispatch_blocks`` blocks (realtime: at most half the
+    FIFO depth), with the device work of window k+1 overlapped against the
+    copy back, corrections and sink write of window k. numpy/native runs
+    go block by block."""
+    if cfg.interactive:
         raise NotImplementedError(
-            "realtime and interactive runs are not ported to the "
-            "PyTorch/CUDA package yet; see ROADMAP.md"
+            "interactive runs are not ported to the PyTorch/CUDA package "
+            "yet; see ROADMAP.md"
         )
     device = None
     if cfg.backend in DEVICE_BACKENDS:
@@ -150,6 +456,8 @@ def run_simulation(
         from .noise import apply_awgn
 
     stats = RunStats()
+    supervisor = RealtimeSupervisor(cfg, sink, stats) if cfg.realtime else None
+    t_act: float | None = None  # failover decision time (latency metric)
     t0 = time.perf_counter()
     try:
         tp = time.perf_counter()
@@ -165,6 +473,8 @@ def run_simulation(
                                  cfg.noise_seed, 0,
                                  base_index + stats.blocks)
             sink.write(blk)
+            if t_act is not None and stats.failover_latency_s is None:
+                stats.failover_latency_s = time.perf_counter() - t_act
             stats.blocks += 1
             stats.samples += plan.num_samples
             stats.wall_seconds = te - t0
@@ -172,11 +482,29 @@ def run_simulation(
                 on_block(stats, sim, plan)
             if stop is not None and stop():
                 break
+            if cfg.realtime:
+                pace(stats.blocks, t0, cfg.fifo_depth)
+                if supervisor.check(t0) == "failover":
+                    t_act = time.perf_counter()
+                    synth_fn = _native_synth_fn(cfg)
             tp = time.perf_counter()
     finally:
         sink.close()
     stats.wall_seconds = time.perf_counter() - t0
+    stats.underruns = getattr(sink, "underruns", 0)
     return stats
+
+
+def _native_synth_fn(cfg: SimConfig, bits: int = 16):
+    """Per-block native sequential synthesizer (the failover target —
+    sequential-exact, so a strict-parity stream continues byte-
+    identically). bits=8 quantizes (>>4) inside the native loop."""
+    from .ops.synth_seq import synth_block_seq_native
+
+    int_nco = cfg.carrier_mode is CarrierMode.INT_NCO
+    return lambda plan: synth_block_seq_native(
+        plan, int_nco=int_nco, bits=bits
+    )
 
 
 def resolve_batch_kernel(cfg: SimConfig):
@@ -222,6 +550,10 @@ def make_packed_kernel(kernel, n_rows: int, num_samples: int, bits: int,
     non-blocking copy into a pinned host buffer, followed by an event. The
     windows alternate between two CUDA streams, so one window's copy back
     overlaps the next window's kernel. On the CPU the call is synchronous.
+
+    A window dropped unread (a realtime failover) is safe to drop: the
+    caching host allocator records an event for each non-blocking copy of
+    a pinned buffer and hands the buffer out again only after it.
     """
     import torch
 
@@ -288,22 +620,40 @@ def _run_batched(
     dispatch = make_packed_kernel(
         kernel, n_rows, cfg.samples_per_epoch, bits, wide, device
     )
-    W = max(1, cfg.dispatch_blocks)
+    W = dispatch_window(cfg)
     strict = strict_parity_enabled(cfg)
     if strict:
         from .ops.synth_seq import apply_corrections, seq_corrections_window
     base_index = sim.next_block_index  # noise keying (resume-stable)
     if cfg.noise_std_lsb > 0.0:
         from .noise import apply_awgn
+    # Channel compaction trims the channel axis to the window's max active
+    # count, which changes at 30 s reallocations. A paced run keeps the
+    # full channel axis: one launch shape for the whole run.
+    compact = not cfg.realtime
+
+    def window_args(plans: list, pad: bool) -> tuple:
+        # Padding blocks (a short tail window up to W, so every launch
+        # has the same shape) are synthesized and dropped. compact_multiple
+        # =4 bounds the distinct channel extents as 30 s reallocations
+        # drift the max-active count.
+        if pad and len(plans) < W:
+            plans = plans + [plans[-1]] * (W - len(plans))
+        batch = collate_plans(plans, int_nco=int_nco, compact=compact,
+                              compact_multiple=4)
+        return pack_args(batch.args)
 
     stats = RunStats()
-    t0 = time.perf_counter()
+    supervisor = RealtimeSupervisor(cfg, sink, stats) if cfg.realtime else None
     it = sim.iter_plans()
     pending: deque = deque()  # (in_flight, redispatch_fn, plans, snapshot)
     # Nothing written yet: a checkpoint taken before the first window
     # drains must capture the pre-run state, not planner-ahead state.
     sim.consistent_snapshot = capture_state(sim)
     any_full = False  # a W-block window has been dispatched
+    if cfg.realtime:
+        prepare_device(cfg, device, W)
+    t0 = time.perf_counter()
 
     def drain_one() -> None:
         fut, redispatch, done_plans, snap = pending.popleft()
@@ -331,6 +681,37 @@ def _run_batched(
         if on_block is not None:
             on_block(stats, sim, done_plans[-1])
 
+    def fail_over() -> bool:
+        """The device path cannot hold 1x: write the in-flight windows'
+        plans natively (never fetching them through the path that just
+        proved too slow), then carry the stream natively while probing
+        the device path. Returns True on failback (the loop resumes from
+        the next unwritten plan) and False when the run ended (scenario
+        done or stop())."""
+        t_act = time.perf_counter()
+        if _drain_pending_native(cfg, sink, sim, pending, stats, t0,
+                                 on_block, stop, base_index, t_act):
+            return False
+        # every handed-out plan is written: hooks use the live state again
+        sim.consistent_snapshot = None
+
+        def after_block(plan, synced: bool) -> bool:
+            if on_block is not None and synced:
+                on_block(stats, sim, plan)
+            if stop is not None and stop():
+                return True
+            pace(stats.blocks, t0, cfg.fifo_depth)
+            return False
+
+        probe = None
+        if cfg.failback_probe_sec > 0:
+            probe = DeviceProbe(
+                lambda plans: dispatch(*window_args(plans, pad=True)), W,
+                stats.events)
+        return native_until_failback(
+            it, _make_native_writer(cfg, sink, stats, t0, base_index, t_act),
+            after_block, supervisor, stats, probe, W)
+
     try:
         while True:
             ts = time.perf_counter()
@@ -338,18 +719,8 @@ def _run_batched(
             tp = time.perf_counter()
             stats.plan_seconds += tp - ts
             if plans:
-                # Pad a short tail window up to W blocks, so every launch
-                # has the same shape; padding blocks are synthesized and
-                # dropped.
-                padded = plans
-                if any_full and len(plans) < W:
-                    padded = plans + [plans[-1]] * (W - len(plans))
-                any_full = any_full or len(padded) == W
-                # compact_multiple=4 bounds the distinct channel extents
-                # as 30 s reallocations drift the max-active count.
-                batch = collate_plans(padded, int_nco=int_nco,
-                                      compact=True, compact_multiple=4)
-                packed, spec = pack_args(batch.args)
+                packed, spec = window_args(plans, pad=any_full)
+                any_full = any_full or len(plans) == W
 
                 def redispatch(p=packed, s=spec):
                     return dispatch(p, s)
@@ -365,6 +736,16 @@ def _run_batched(
                 stats.synth_seconds += time.perf_counter() - tp
             if (not plans and pending) or len(pending) >= 2:
                 drain_one()
+                if cfg.realtime:
+                    pace(stats.blocks, t0, cfg.fifo_depth)
+                    if supervisor.check(t0) == "failover":
+                        if not fail_over():
+                            break
+                        # Failback: every plan handed out is written, so
+                        # the live state matches the stream again; the
+                        # loop continues from the next unwritten plan.
+                        sim.consistent_snapshot = capture_state(sim)
+                        continue
             if not plans and not pending:
                 # Normal completion: live state matches the written blocks
                 # again, so later checkpoints can use it directly.
@@ -378,4 +759,170 @@ def _run_batched(
     finally:
         sink.close()
     stats.wall_seconds = time.perf_counter() - t0
+    stats.underruns = getattr(sink, "underruns", 0)
     return stats
+
+
+def _make_native_writer(cfg: SimConfig, sink: Sink, stats: RunStats,
+                        t0: float, base_index: int, t_act: float,
+                        latency_stats: RunStats | None = None):
+    """Per-block native synth→quantize→noise→write→stats sequence shared
+    by the failover drain/continuation paths and the fleet's native tail
+    (single-sourced so accounting and noise keying cannot drift between
+    them). Also records failover_latency_s — decision to first native
+    block at the sink — on ``latency_stats`` (defaults to ``stats``; a
+    fleet passes its aggregate so the FIRST member byte defines the
+    fleet's recovery latency).
+
+    Clean 8-bit streams quantize inside the native loop (one fewer
+    full-block numpy pass per 0.1 s); noisy/16-bit streams keep the
+    quantize-then-noise order of the batched path."""
+    if latency_stats is None:
+        latency_stats = stats
+    noisy = cfg.noise_std_lsb > 0.0
+    bits = cfg.sample_format.value
+    direct8 = bits == 8 and not noisy
+    synth_fn = _native_synth_fn(cfg, bits=8 if direct8 else 16)
+    if noisy:
+        from .noise import apply_awgn
+
+    def write_block(plan) -> None:
+        ts = time.perf_counter()
+        blk = np.asarray(synth_fn(plan))
+        stats.synth_seconds += time.perf_counter() - ts
+        if not direct8:
+            blk = quantize_iq(blk, bits)
+        if noisy:
+            blk = apply_awgn(blk, bits, cfg.noise_std_lsb,
+                             cfg.noise_seed, 0, base_index + stats.blocks)
+        sink.write(blk)
+        if latency_stats.failover_latency_s is None:
+            latency_stats.failover_latency_s = time.perf_counter() - t_act
+        stats.blocks += 1
+        stats.samples += plan.num_samples
+        stats.wall_seconds = time.perf_counter() - t0
+
+    return write_block
+
+
+def _drain_pending_native(
+    cfg: SimConfig, sink: Sink, sim: Simulation, pending, stats: RunStats,
+    t0: float, on_block, stop, base_index: int, t_act: float,
+) -> bool:
+    """Write the in-flight windows' blocks from the native engine at
+    RealtimeSupervisor failover, leaving the device results unread (the
+    native engine writes the same bytes, and restores the sink's lead in
+    milliseconds). Block accounting, noise keying, checkpoint snapshots
+    and on_block hooks match drain_one. Returns True when stop() ended the
+    run between windows."""
+    write_block = _make_native_writer(cfg, sink, stats, t0, base_index,
+                                      t_act)
+    while pending:
+        _fut, _redispatch, done_plans, snap = pending.popleft()
+        for plan in done_plans:
+            write_block(plan)
+        sim.consistent_snapshot = snap
+        if on_block is not None:
+            on_block(stats, sim, done_plans[-1])
+        if stop is not None and stop():
+            return True
+    return False
+
+
+
+
+def native_until_failback(
+    it, write_item, after_item, supervisor: RealtimeSupervisor,
+    stats: RunStats, probe: DeviceProbe | None, window: int,
+    start_probe=None, items_per_tick: int = 1,
+) -> bool:
+    """Carry a realtime run item by item on the native engine after a
+    RealtimeSupervisor failover, probing the device path for failback:
+    the one failback policy of the single-scenario runner and of fleets.
+
+    ``it`` yields the unwritten items (plans, or a fleet's (member, plan)
+    pairs) and ``write_item(item)`` writes one natively. After each write,
+    ``after_item(item, synced)`` does the caller's per-item work — pacing,
+    hooks, and checkpoints only when ``synced`` (no probed item waits in
+    the buffer, so the live planner state is the written state) — and
+    returns True when stop() ends the run.
+
+    Every ``cfg.failback_probe_sec`` of written signal (``items_per_tick``
+    items per 0.1 s, times the supervisor's flap backoff),
+    ``start_probe(items)`` (default ``probe.start``) shadow-dispatches the
+    next ``window`` items to the device; they wait in a buffer and are
+    written natively in turn, so the stream never waits on the probe.
+    Returns True when a probe proves the device path healthy — after
+    writing every buffered item, so the caller resumes from the next
+    unwritten one — and False when the scenario finished or stop() ended
+    the run. A probe that raised ends the run, once the buffered items
+    are written, with RealtimeDeficitError chained from its exception: the
+    device path is broken, and a device run does not go on carrying its
+    stream on the host's native engine."""
+    if start_probe is None and probe is not None:
+        start_probe = probe.start
+    buf: deque = deque()  # probed items awaiting their native write
+
+    def write_buffered() -> None:
+        while buf:
+            item = buf.popleft()
+            write_item(item)
+            after_item(item, not buf)  # drained whether or not stopped
+
+    def launch() -> None:
+        items = list(itertools.islice(it, window))
+        if items:
+            buf.extend(items)
+            start_probe(items)
+
+    probe_every = max(1, int(supervisor.cfg.failback_probe_sec * 10
+                             * items_per_tick * supervisor.probe_backoff))
+    since = 0
+    try:
+        while True:
+            item = buf.popleft() if buf else next(it, None)
+            if item is None:
+                return False
+            write_item(item)
+            if after_item(item, not buf):
+                write_buffered()
+                return False
+            if probe is None:
+                continue
+            since += 1
+            verdict = probe.poll()
+            if probe.error is not None:
+                write_buffered()
+                raise RealtimeDeficitError(
+                    "device path probe failed "
+                    f"({type(probe.error).__name__}: {probe.error}); the "
+                    "run ends instead of going on natively"
+                ) from probe.error
+            if verdict == "healthy":
+                write_buffered()
+                supervisor.note_failback()
+                stats.failbacks += 1
+                msg = (
+                    f"device path probe held {DeviceProbe.CONFIRM} "
+                    f"consecutive windows at >= {DeviceProbe.MARGIN:g}x "
+                    "realtime -> failing back to the batched device pipeline"
+                )
+                logger.info("realtime: %s", msg)
+                stats.events.append(msg)
+                return True
+            if verdict == "confirm":
+                # First healthy window: launch the confirmation probe
+                # back-to-back so the verdict measures sustained rate, not
+                # one burst into drained buffers.
+                launch()
+                continue
+            if verdict == "pending":
+                continue  # never stack a probe on a possibly-sick path
+            if verdict == "slow":
+                since = 0  # full interval before re-probing a sick path
+            if since >= probe_every and not buf:
+                since = 0
+                launch()
+    finally:
+        if probe is not None:
+            probe.join()

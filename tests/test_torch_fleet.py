@@ -245,8 +245,6 @@ def test_cli_fleet_refusals(fixtures_dir, tmp_path):
                   ["--profile-dir", "p"]):
         with pytest.raises(SystemExit):
             cli.run(base + extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.run(base + ["--realtime"])
     bad = tmp_path / "bad.csv"
     bad.write_text("1.0, x, 3.0\n")
     with pytest.raises(SystemExit):
@@ -316,6 +314,4 @@ def test_fleet_refusals(fixtures_dir, tmp_path):
         fleet.run_fleet([cfg(metrics_file="m.jsonl")])
     with pytest.raises(ValueError, match="at least one"):
         fleet.run_fleet([])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fleet.run_fleet([cfg(realtime=True)])
     assert not (tmp_path / "b.bin").exists()

@@ -182,7 +182,7 @@ def test_transient_error_redispatches_same_kernel(fixtures_dir, tmp_path,
 
 
 @pytest.mark.parametrize("flag", [
-    ["--realtime"], ["-i"], ["--fleet", "roster.csv", "--realtime"], ["-f"],
+    ["-i"], ["-f"],
     ["--tui"],
     ["-r", "hackrf"],
 ])
@@ -193,6 +193,5 @@ def test_unported_options_raise(fixtures_dir, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(argv)
     cfg = SimConfig(nav_file=f"{fixtures_dir}/brdc_test.22n", device="cpu")
-    for field in ("realtime", "interactive"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            runner.run_simulation(dataclasses.replace(cfg, **{field: True}))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runner.run_simulation(dataclasses.replace(cfg, interactive=True))
