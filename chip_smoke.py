@@ -58,6 +58,16 @@ raises on failure (a failed phase ends the run with a non-zero exit):
    [4g] a paced ``--fleet`` of [4c]'s roster for 5 s, each member equal
         to its solo native run with no failover; then a 2-member paced
         fleet stalled as in [4f] fails over and back, byte-equal.
+   [4h] in-process, an interactive paced 5 s run (``-r iqfile``) steered
+        by a thread that calls ``TuiApp.handle_key`` every 0.2 s (no tty,
+        no curses): the edits, recorded where they landed, replayed on
+        ``--backend native`` give the same bytes; 0 failovers, 0
+        underruns, key-to-stream latency at most ``fifo_depth`` = 8
+        blocks.
+   [4i] interactive runs into the mock HackRF and Pluto libraries
+        (``native/mock_*.c``, built with ``cc``, a fresh copy per run)
+        through the sinks' own binding: each capture equals
+        ``--backend native``'s, and the mock saw a clean teardown.
 5. Times: K1 and K2 and their plain versions per 25-block window (CUDA
    events, median; and each kernel's device time per launch from
    torch.profiler, which no slowness of the host can inflate), beside
@@ -98,6 +108,10 @@ PACED_WINDOW = 4
 PACED_SECONDS = 10  # [4e]
 ROUNDTRIP_SECONDS = 12  # [4f]
 THROTTLE_SECONDS = 2.0  # [4f], [4g]: pack_args stalls for this long
+KEY_SECONDS = 5  # [4h]
+KEYS = "dewdewdeq"  # [4h]: bearing, speed, vertical speed; one every 0.2 s
+HACKRF_SECONDS = 2.5  # [4i]: 24 blocks, 14.4 MB (the mock holds 16 MiB)
+PLUTO_SECONDS = 0.9  # [4i]: 8 blocks, the mock's whole capture
 
 # Published peaks of one H100 SXM (NVIDIA data sheet and Hopper white
 # paper): 3.35 TB/s of HBM3; 132 SMs at a 1.98 GHz boost clock, each
@@ -1033,6 +1047,221 @@ def paced_fleet(workdir: str) -> dict:
                                events=tstats[0].events))
 
 
+def queued_sim(cfg, written):
+    """[4h] a Simulation whose ``set_motion`` (what the TUI's keys call,
+    from the key thread) queues the edit with ``written()`` — the blocks
+    written when the key was sent — and whose ``step`` applies the queue
+    before it plans a block. ``landed`` records (planned index the edit
+    landed at, counted from 0; the set_motion kwargs; blocks written at
+    the send)."""
+    from gpssim_tpu_torch.scenario import Simulation
+
+    class Queued(Simulation):
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.lock = threading.Lock()
+            self.queue, self.landed = [], []
+
+        def set_motion(self, **kw):
+            with self.lock:
+                self.queue.append((kw, written()))
+
+        def step(self):
+            with self.lock:
+                queue, self.queue = self.queue, []
+            for kw, sent in queue:
+                super().set_motion(**kw)
+                self.landed.append((self._iumd - 1, kw, sent))
+            return super().step()
+
+    return Queued(cfg)
+
+
+def replayed_sim(cfg, landed):
+    """A Simulation that applies each recorded edit just before it plans
+    the block the edit landed at."""
+    from gpssim_tpu_torch.scenario import Simulation
+
+    edits = {}
+    for index, kw, _ in landed:
+        edits.setdefault(index + 1, []).append(kw)  # _iumd counts from 1
+
+    class Replayed(Simulation):
+        def step(self):
+            for kw in edits.get(self._iumd, ()):
+                self.set_motion(**kw)
+            return super().step()
+
+    return Replayed(cfg)
+
+
+def interactive_e2e(workdir: str) -> dict:
+    """[4h] an interactive paced run (``interactive=True, realtime=True``,
+    ``--backend cuda``, ``-r iqfile``) steered by keys: a thread calls the
+    real key map, ``TuiApp.handle_key``, every 0.2 s on a TuiApp that is
+    built but never run under curses. The recorded edits, replayed at
+    their planned indices on ``--backend native``, give the same bytes;
+    no failover, no underrun, and no key waits more than ``fifo_depth``
+    blocks to reach the stream."""
+    from gpssim_tpu_torch.config import LocationConfig, SimConfig, SynthBackend
+    from gpssim_tpu_torch.io.sinks import make_configured_sink
+    from gpssim_tpu_torch.runner import run_simulation
+    from gpssim_tpu_torch.tui import TuiApp
+
+    lat, lon, hgt = (float(v) for v in LOCATION.split(","))
+    cfg = SimConfig(nav_file=FIXTURE, duration_sec=float(KEY_SECONDS),
+                    almanac_enable=False, location=LocationConfig(lat, lon,
+                                                                  hgt),
+                    backend=SynthBackend.CUDA, interactive=True,
+                    realtime=True,
+                    out_file=os.path.join(workdir, "interactive.bin"))
+    sink = make_configured_sink(cfg)
+    sim = queued_sim(cfg, lambda: app.stats.blocks if app.stats else 0)
+    app = TuiApp(cfg, sim, sink)
+    done = threading.Event()
+    sent = []
+
+    def keys():
+        while not done.wait(0.2):
+            key = KEYS[len(sent) % len(KEYS)]
+            app.handle_key(ord(key))
+            sent.append(key)
+
+    def hook(stats, sim, plan):  # as TuiApp.run's own hook
+        app.stats = stats
+
+    thread = threading.Thread(target=keys, daemon=True, name="keys")
+    reset_launches()
+    thread.start()
+    try:
+        stats = run_simulation(cfg, sink=sink, sim=sim, on_block=hook)
+    finally:
+        done.set()
+        thread.join(5)
+    launches = read_launches()
+    blocks = KEY_SECONDS * 10 - 1
+    lat_blocks = [index - at for index, _, at in sim.landed]
+    if not lat_blocks:
+        raise AssertionError(f"[4h]: no edit landed ({len(sent)} sent)")
+
+    ref = SimConfig(**{**cfg.__dict__, "backend": SynthBackend.NATIVE,
+                       "realtime": False,
+                       "out_file": os.path.join(workdir, "replayed.bin")})
+    run_simulation(ref, sim=replayed_sim(ref, sim.landed))
+    files_equal("interactive run against its native replay", ref.out_file,
+                cfg.out_file, blocks=blocks)
+    want = -(-blocks // PACED_WINDOW)
+    if (stats.blocks != blocks or stats.failovers or stats.underruns
+            or launches["K1"] != want or launches["K2"]
+            or max(lat_blocks) > cfg.fifo_depth):
+        raise AssertionError(
+            f"[4h]: {stats.blocks} blocks, {stats.failovers} failovers, "
+            f"{stats.underruns} underruns, launches {launches} (K1 {want}),"
+            f" latency {lat_blocks} blocks (at most {cfg.fifo_depth})")
+    print(f"  interactive paced run: {len(sent)} keys sent, "
+          f"{len(sim.landed)} edits landed; key-to-stream latency median "
+          f"{statistics.median(lat_blocks)} blocks, max {max(lat_blocks)} "
+          f"(bound {cfg.fifo_depth}); {stats.blocks} blocks, wall "
+          f"{stats.wall_seconds:.3f} s, {stats.underruns} underruns, "
+          f"{stats.failovers} failovers; launches {launches}; bytes equal "
+          "to the edits replayed on --backend native")
+    return dict(launches=launches, keys_sent=len(sent),
+                edits_landed=len(sim.landed),
+                latency_blocks_median=statistics.median(lat_blocks),
+                latency_blocks_max=max(lat_blocks), blocks=stats.blocks,
+                wall_s=stats.wall_seconds, underruns=stats.underruns,
+                failovers=stats.failovers)
+
+
+def build_mock(workdir: str, name: str, tag: str) -> str:
+    """``native/<name>.c`` built with ``cc`` into a library of its own (a
+    mock keeps its capture in global state: one fresh copy per run)."""
+    cc = shutil.which("cc")
+    if cc is None:
+        raise RuntimeError("no C compiler (cc) to build the mock radios")
+    out = os.path.join(workdir, f"lib{name}_{tag}.so")
+    subprocess.run([cc, "-O2", "-shared", "-fPIC", "-pthread", "-o", out,
+                    os.path.join(REPO, "native", f"{name}.c")],
+                   check=True, capture_output=True, timeout=120)
+    return out
+
+
+def radios_e2e(workdir: str) -> dict:
+    """[4i] interactive runs into the mock HackRF (8-bit, 24 blocks) and
+    the mock Pluto (16-bit, 8 blocks: its whole capture), each sink
+    binding its library itself (``HackRfSink(lib_path=...)``, as ``-r
+    hackrf`` does): the capture of ``--backend cuda`` equals that of
+    ``--backend native`` through a fresh copy of the same mock (whole
+    262,144-byte transfers for the HackRF), and the mock saw a clean
+    teardown."""
+    import ctypes
+
+    import numpy as np
+
+    from gpssim_tpu_torch.config import (
+        LocationConfig, SampleFormat, SimConfig, SynthBackend,
+    )
+    from gpssim_tpu_torch.io.hw_hackrf import TRANSFER_SIZE
+    from gpssim_tpu_torch.io.sinks import make_sink
+    from gpssim_tpu_torch.runner import run_simulation
+
+    lat, lon, hgt = (float(v) for v in LOCATION.split(","))
+    out = {}
+    for radio, mock_name, seconds, fmt in (
+            ("hackrf", "mock_hackrf", HACKRF_SECONDS, SampleFormat.SC08),
+            ("plutosdr", "mock_iio", PLUTO_SECONDS, SampleFormat.SC16)):
+        blocks = int(seconds * 10 + 0.5) - 1
+        nbytes = blocks * 2 * 300_000 * fmt.value // 8
+        if radio == "hackrf":
+            nbytes = nbytes // TRANSFER_SIZE * TRANSFER_SIZE
+        caps, res = {}, {}
+        for backend in ("cuda", "native"):
+            path = build_mock(workdir, mock_name, backend)
+            cfg = SimConfig(nav_file=FIXTURE, duration_sec=seconds,
+                            almanac_enable=False,
+                            location=LocationConfig(lat, lon, hgt),
+                            backend=SynthBackend(backend), interactive=True,
+                            sink=radio, sample_format=fmt,
+                            pluto_gain_boost=radio == "plutosdr")
+            reset_launches()
+            t = time.perf_counter()
+            stats = run_simulation(cfg, sink=make_sink(radio, lib_path=path))
+            wall = time.perf_counter() - t
+            launches = read_launches()
+            mock = ctypes.CDLL(path)
+            mock.mock_copy_capture.restype = ctypes.c_long
+            got = np.empty(nbytes, dtype=np.int8)
+            n = mock.mock_copy_capture(got.ctypes.data_as(ctypes.c_void_p),
+                                       nbytes)
+            if (stats.blocks != blocks or mock.mock_captured_bytes() != nbytes
+                    or n != nbytes or mock.mock_teardown_ok() != 1):
+                raise AssertionError(
+                    f"[4i] {radio} --backend {backend}: {stats.blocks} "
+                    f"blocks, {mock.mock_captured_bytes()} bytes captured "
+                    f"(expected {nbytes}), teardown ok "
+                    f"{mock.mock_teardown_ok()}")
+            caps[backend] = got
+            res[backend] = dict(launches=launches, wall_s=wall,
+                                blocks=stats.blocks)
+        if not np.array_equal(caps["cuda"], caps["native"]):
+            bad = np.flatnonzero(caps["cuda"] != caps["native"])
+            raise AssertionError(f"[4i] {radio}: capture != --backend native"
+                                 f" ({len(bad)} bytes differ, first at "
+                                 f"{int(bad[0])})")
+        want = -(-blocks // PACED_WINDOW)
+        launches = res["cuda"]["launches"]
+        if launches["K1"] != want or launches["K2"]:
+            raise AssertionError(f"[4i] {radio}: launches {launches} "
+                                 f"(expected K1 {want})")
+        print(f"  {radio} mock: {blocks} blocks, {nbytes} bytes captured, "
+              f"equal to --backend native's capture; teardown ok; launches "
+              f"{launches}; wall {res['cuda']['wall_s']:.3f} s (native "
+              f"{res['native']['wall_s']:.3f} s)")
+        out[radio] = dict(res["cuda"], bytes=nbytes,
+                          native_wall_s=res["native"]["wall_s"])
+    return out
+
+
 def profile_run(what: str, run) -> dict:
     """``run()`` (returning RunStats, or a fleet's list of them) under
     torch.profiler: the host stages (a fleet books them on member 0) and
@@ -1358,6 +1587,12 @@ def main() -> int:
         print(f"[4g] paced --fleet, {FLEET_SECONDS} s, then a 2-member "
               "fleet round trip")
         e2e["paced_fleet"] = paced_fleet(workdir)
+        print(f"[4h] interactive paced {KEY_SECONDS} s, keys from a thread "
+              "through TuiApp.handle_key, against the edits replayed on "
+              "--backend native")
+        e2e["interactive"] = interactive_e2e(workdir)
+        print("[4i] HackRF and Pluto mock radios, against --backend native")
+        e2e["radios"] = radios_e2e(workdir)
     finally:
         for f in os.listdir(workdir):
             os.remove(os.path.join(workdir, f))
@@ -1426,7 +1661,10 @@ def main() -> int:
                 "roundtrip": e2e["roundtrip"]["launches"][k],
                 "paced_fleet": e2e["paced_fleet"]["launches"][k],
                 "fleet_roundtrip":
-                    e2e["paced_fleet"]["roundtrip"]["launches"][k]}
+                    e2e["paced_fleet"]["roundtrip"]["launches"][k],
+                "interactive": e2e["interactive"]["launches"][k],
+                "hackrf": e2e["radios"]["hackrf"]["launches"][k],
+                "pluto": e2e["radios"]["plutosdr"]["launches"][k]}
 
     print(smi)
     print(json.dumps({

@@ -1,9 +1,8 @@
-"""Application orchestration: config → simulation → headless run.
+"""Application orchestration: config → simulation → run (headless or TUI).
 
 Re-design of the reference's main() lifecycle (gps-sim.c:267-418): build the
 scenario, create the sink, run the generator, surface status — with
-checkpointing, metrics and torch profiling the reference never had. The
-curses dashboard is not ported yet (ROADMAP.md).
+checkpointing, metrics and torch profiling the reference never had.
 """
 
 from __future__ import annotations
@@ -38,36 +37,11 @@ def _maybe_profile(profile_dir: str | None):
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
-def format_channel_rows(sim) -> list[str]:
-    """Verbose channel table (reference gps.c:2677-2685 / 2911-2928)."""
-    # The windowed planner defers channel write-back; pull it current so
-    # the displayed az/el/rho match the last planned block.
-    sync = getattr(sim, "_sync_channels", None)
-    if sync is not None:
-        sync()
-    rows = []
-    for i, ch in enumerate(sim.channels.chan):
-        if ch.prn <= 0:
-            continue
-        az, el = ch.azel
-        rows.append(
-            f"  {i:2d}  PRN{ch.prn:3d}  az {az * R2D:6.1f}  el {el * R2D:5.1f}"
-            f"  rho {ch.rho0_range:14.3f}  iono {ch.rho0_iono:7.3f}"
-        )
-    return rows
-
-
-def format_position(sim) -> str:
-    llh = sim.current_llh()
-    return (
-        f"Lat {llh[0] * R2D:11.6f}  Lon {llh[1] * R2D:11.6f}  "
-        f"Hgt {llh[2]:8.1f} m"
-    )
-
-
 def _verbose_block_hook(cfg: SimConfig, out=sys.stderr):
     """Per-30 s checkpoint, channel table print (reference
     gps.c:2911-2928) and metrics record."""
+    from .tui import format_channel_rows, format_position
+
     state = {"saved_at": 0, "printed_at": 0, "metrics_at": 0}
 
     def hook(stats, sim, plan):
@@ -129,8 +103,11 @@ def _verbose_block_hook(cfg: SimConfig, out=sys.stderr):
     return hook
 
 
-def run_app(cfg: SimConfig, sim: Simulation | None = None):
-    """Headless run of a scenario; returns (exit code, RunStats)."""
+def run_app(cfg: SimConfig, sim: Simulation | None = None,
+            use_tui: bool = False):
+    """Run a scenario, under the curses dashboard when ``use_tui`` and
+    stdout is a terminal, else headless; returns (exit code, RunStats).
+    Under the TUI the RunStats are its worker's (``TuiApp.stats``)."""
     if sim is None:
         sim = Simulation(cfg)
 
@@ -147,40 +124,67 @@ def run_app(cfg: SimConfig, sim: Simulation | None = None):
 
     rc = 0
     with _maybe_profile(cfg.profile_dir):
-        # Clean shutdown on SIGINT/SIGTERM: finish the in-flight window,
-        # drain the sink, write the final checkpoint (the reference
-        # installs the same handlers, gps-sim.c:273-275).
-        import signal
+        if use_tui and sys.stdout.isatty():
+            from .tui import TuiApp
 
-        stop_flag = {"stop": False}
+            app = TuiApp(cfg, sim, sink)
+            # Verbose output goes into the TUI status log — printing to
+            # stderr would scribble over the active curses screen. The
+            # run is on the TUI's worker thread: no signal handlers ('x'
+            # stops it).
+            rc = app.run(on_block=_verbose_block_hook(cfg, out=app.log))
+            stats = app.stats
+        else:
+            # Clean shutdown on SIGINT/SIGTERM: finish the in-flight
+            # window, drain the sink, write the final checkpoint (the
+            # reference installs the same handlers, gps-sim.c:273-275).
+            import signal
 
-        def _sig(signum, frame):
-            if stop_flag["stop"]:
-                # Second signal: stop being graceful (a wedged device
-                # call must remain interruptible).
+            stop_flag = {"stop": False}
+
+            def _sig(signum, frame):
+                if stop_flag["stop"]:
+                    # Second signal: stop being graceful (a wedged device
+                    # call must remain interruptible).
+                    for s, h in prev.items():
+                        signal.signal(s, h)
+                    raise KeyboardInterrupt
+                stop_flag["stop"] = True
+
+            prev = {}
+            for s in (signal.SIGINT, signal.SIGTERM):
+                try:
+                    prev[s] = signal.signal(s, _sig)
+                except ValueError:  # not the main thread
+                    pass
+            try:
+                stats = run_simulation(
+                    cfg, sink=sink, sim=sim,
+                    on_block=_verbose_block_hook(cfg),
+                    stop=lambda: stop_flag["stop"],
+                )
+            finally:
                 for s, h in prev.items():
                     signal.signal(s, h)
-                raise KeyboardInterrupt
-            stop_flag["stop"] = True
+            if stop_flag["stop"]:
+                rc = 130
 
-        prev = {}
-        for s in (signal.SIGINT, signal.SIGTERM):
-            try:
-                prev[s] = signal.signal(s, _sig)
-            except ValueError:  # not the main thread
-                pass
-        try:
-            stats = run_simulation(
-                cfg, sink=sink, sim=sim,
-                on_block=_verbose_block_hook(cfg),
-                stop=lambda: stop_flag["stop"],
-            )
-        finally:
-            for s, h in prev.items():
-                signal.signal(s, h)
-        if stop_flag["stop"]:
-            rc = 130
+    if stats is not None:
+        _print_summary(cfg, sink, stats)
+    if cfg.checkpoint_file:
+        from .checkpoint import capture_state, write_state
 
+        # On an interrupted pipelined run the planner may be ahead of the
+        # written blocks; prefer the runner's last drain-time snapshot.
+        snap = getattr(sim, "consistent_snapshot", None)
+        write_state(
+            cfg.checkpoint_file,
+            snap if snap is not None else capture_state(sim),
+        )
+    return rc, stats
+
+
+def _print_summary(cfg: SimConfig, sink, stats) -> None:
     print(
         f"done: {stats.blocks} blocks ({stats.blocks * 0.1:.1f} s of "
         f"signal) in {stats.wall_seconds:.2f} s wall "
@@ -204,14 +208,3 @@ def run_app(cfg: SimConfig, sim: Simulation | None = None):
             "host<->device link.",
             file=sys.stderr,
         )
-    if cfg.checkpoint_file:
-        from .checkpoint import capture_state, write_state
-
-        # On an interrupted pipelined run the planner may be ahead of the
-        # written blocks; prefer the runner's last drain-time snapshot.
-        snap = getattr(sim, "consistent_snapshot", None)
-        write_state(
-            cfg.checkpoint_file,
-            snap if snap is not None else capture_state(sim),
-        )
-    return rc, stats

@@ -8,10 +8,11 @@ backend, torch device, sample rate, output path, checkpointing). Run as
 ``--fleet roster.csv`` runs one scenario per roster row through one
 batched pipeline (fleet.py). ``--realtime`` paces a run (or a fleet) at
 the wall-clock rate under the realtime supervisor, with
-``--realtime-policy`` choosing its response to a deficit. Interactive
-control, the curses dashboard, the hardware radios and the RINEX/almanac
-download are not ported yet: their flags raise ``NotImplementedError``
-(ROADMAP.md).
+``--realtime-policy`` choosing its response to a deficit. ``-i`` steers
+the position live from the keyboard under the curses dashboard (``--tui``
+shows the dashboard alone), ``-r hackrf`` and ``-r plutosdr`` transmit
+through libhackrf and libiio, and ``-f`` downloads the hourly RINEX
+navigation file before the run.
 """
 
 from __future__ import annotations
@@ -31,9 +32,6 @@ from .config import (
 )
 from .core.constants import USER_MOTION_SIZE
 from .core.gpstime import DateTime
-
-#: sinks that drive SDR hardware through their C libraries (not ported yet)
-_HARDWARE_SINKS = ("hackrf", "plutosdr")
 
 
 def _parse_start(arg: str) -> tuple[DateTime, bool]:
@@ -88,13 +86,19 @@ def build_parser() -> argparse.ArgumentParser:
     )
     from . import __version__
 
+    # argp gives the reference --version/--usage for free (README usage
+    # table); mirror them.
     p.add_argument("-V", "--version", action="version",
                    version=f"%(prog)s {__version__}")
+    p.add_argument("--usage", action="help", help=argparse.SUPPRESS)
+    p.add_argument("-?", action="help", help=argparse.SUPPRESS,
+                   dest="help_alias")  # argp's -? (help.h usage table)
     # --- reference-parity options (help.h:20-53) ---
     p.add_argument("-e", "--nav-file", metavar="filename",
                    help="RINEX navigation file for GPS ephemeris (required)")
     p.add_argument("-f", "--use-ftp", action="store_true",
-                   help="Download the RINEX file and almanac (not ported)")
+                   help="Pull current RINEX navigation file and almanac from "
+                        "online sources")
     p.add_argument("-l", "--geo-loc", metavar="lat,lon,height",
                    help="Latitude, Longitude, Height (static mode), e.g. "
                         "35.681298,139.766247,10.0")
@@ -107,7 +111,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Show verbose output and details about simulated "
                         "channels")
     p.add_argument("-i", "--interactive", action="store_true",
-                   help="Interactive mode (not ported)")
+                   help="Use interactive mode (live position control)")
+    p.add_argument("-a", "--amplifier", action="store_true",
+                   help="Enable TX amplifier (hardware sinks; default OFF)")
+    p.add_argument("-g", "--gain", type=int, default=0, metavar="gain",
+                   help="Initial TX gain, HackRF: 0-47 dB, Pluto: -80-0 dB "
+                        "(default 0)")
     p.add_argument("-d", "--duration", type=float, metavar="seconds",
                    help="Duration in seconds")
     p.add_argument("-t", "--target", metavar="dist,bearing,height",
@@ -117,14 +126,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-3", "--rinex3", action="store_true",
                    help="Use RINEX v3 navigation data format")
     p.add_argument("-r", "--radio", default="none", metavar="name",
-                   help="Sink type (none, null, iqfile, tcp)")
+                   help="Sink/SDR device type (none, null, iqfile, tcp, "
+                        "hackrf, plutosdr)")
     p.add_argument("--iq16", action="store_true",
                    help="IQ sample size 16 bit (default 8 bit)")
+    p.add_argument("-U", "--uri", metavar="uri", help="ADALM-Pluto URI")
+    p.add_argument("-N", "--network", default=None, metavar="host",
+                   help="ADALM-Pluto network IP or hostname (default: local "
+                        "USB context first, then pluto.local — "
+                        "sdr_pluto.c:140-156)")
     p.add_argument("-m", "--motion", metavar="filename",
                    help="User motion file (dynamic mode): 10 Hz t,x,y,z ECEF "
                         "CSV, or an NMEA $--GGA log")
     p.add_argument("--disable-almanac", action="store_true",
                    help="Disable transmission of almanac information")
+    p.add_argument("--station", metavar="id",
+                   help="Ground-station ID for RINEX FTP download (random if "
+                        "omitted)")
     # --- framework options ---
     p.add_argument("--backend", choices=[b.value for b in SynthBackend],
                    default=SynthBackend.CUDA.value,
@@ -158,7 +176,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default), raise an attributed error, or log and "
                         "keep counting")
     p.add_argument("--tui", action="store_true",
-                   help="Curses dashboard (not ported)")
+                   help="Curses dashboard (auto-enabled with --interactive "
+                        "on a TTY)")
     p.add_argument("--fleet", metavar="roster.csv",
                    help="One scenario per roster row (lat,lon,height"
                         "[,out_file]) through one batched pipeline; member "
@@ -190,21 +209,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    unported = [
-        flag for flag, on in (
-            ("-i/--interactive", args.interactive),
-            ("--tui", args.tui), ("-f/--use-ftp", args.use_ftp),
-            ("-r " + args.radio, args.radio in _HARDWARE_SINKS),
-        ) if on
-    ]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: not ported to the PyTorch/CUDA package "
-            "yet; see ROADMAP.md"
-        )
-
-
 def args_to_config(args: argparse.Namespace) -> SimConfig:
     """Translate parsed args into a SimConfig, applying reference semantics."""
     cfg = SimConfig()
@@ -219,6 +223,7 @@ def args_to_config(args: argparse.Namespace) -> SimConfig:
         raise SystemExit("ERROR: --noise-std must be a finite value >= 0")
     cfg.noise_std_lsb = args.noise_std
     cfg.noise_seed = args.noise_seed
+    cfg.interactive = args.interactive
     cfg.backend = SynthBackend(args.backend)
     cfg.device = args.device
     cfg.carrier_mode = CarrierMode.INT_NCO if args.int_nco else CarrierMode.FLOAT
@@ -227,6 +232,12 @@ def args_to_config(args: argparse.Namespace) -> SimConfig:
     cfg.realtime_policy = args.realtime_policy
     cfg.out_file = args.out_file
     cfg.tcp_addr = args.tcp_addr
+    cfg.tx_gain = args.gain
+    cfg.tx_amplifier = args.amplifier
+    cfg.use_ftp = args.use_ftp
+    cfg.station_id = args.station
+    cfg.pluto_uri = args.uri
+    cfg.pluto_hostname = args.network
     cfg.checkpoint_file = args.checkpoint
     cfg.profile_dir = args.profile_dir
     cfg.metrics_file = args.metrics_file
@@ -237,6 +248,14 @@ def args_to_config(args: argparse.Namespace) -> SimConfig:
     if args.iq16:
         cfg.sample_format = SampleFormat.SC16
     cfg.sink = args.radio
+    # Hardware sinks force their sample format (sdr_hackrf.c:44-48 8-bit,
+    # sdr_pluto.c:106-110 16-bit) and Pluto doubles baseband gain
+    # (gps.c:2759-2763).
+    if cfg.sink == "hackrf":
+        cfg.sample_format = SampleFormat.SC08
+    elif cfg.sink == "plutosdr":
+        cfg.sample_format = SampleFormat.SC16
+        cfg.pluto_gain_boost = True
 
     if args.geo_loc:
         lat, lon, height = _parse_triple(args.geo_loc, "location")
@@ -262,6 +281,7 @@ def args_to_config(args: argparse.Namespace) -> SimConfig:
         cfg.duration_sec = USER_MOTION_SIZE / 10.0
     if args.motion:
         cfg.motion_file = args.motion
+        cfg.interactive = False  # motion file overrides (gps-sim.c:63-68)
     return cfg
 
 
@@ -283,13 +303,16 @@ def run(argv: list[str] | None = None):
     (exit code, per-member RunStats list) for a fleet."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    _refuse_unported(args)
 
     if args.radio == "none" and not args.resume:
         # The reference exits listing supported radios when none is chosen
-        # (sdr.c:48-55).
+        # (sdr.c:48-55). 'null' remains available as an explicit discard
+        # sink for benchmarking.
+        from .io.sinks import _REGISTRY
+
         print("No radio selected (-r/--radio); supported sinks are: "
-              "iqfile, null, tcp", file=sys.stderr)
+              + ", ".join(sorted(set(_REGISTRY) - {"none"})),
+              file=sys.stderr)
         return 1, None
 
     if args.fleet:
@@ -333,11 +356,27 @@ def run(argv: list[str] | None = None):
             cfg.checkpoint_file = args.checkpoint
     else:
         cfg = args_to_config(args)
+        if cfg.use_ftp:
+            from .io.fetch import FetchError, fetch_rinex
+
+            try:
+                cfg.nav_file = fetch_rinex(cfg.station_id, cfg.rinex_version)
+            except FetchError as e:
+                # Network failure is a reportable condition (reference
+                # prints red status and exits, gps.c:2456-2466), not a
+                # traceback.
+                parser.error(f"RINEX download failed: {e}")
         if cfg.nav_file is None:
             parser.error("GPS ephemeris file is not specified (-e/--nav-file)")
         sim = None
 
     if args.fleet:
+        if cfg.interactive or args.tui:
+            parser.error(
+                "--fleet cannot combine with --interactive/--tui "
+                "(per-scenario features; run members through "
+                "run_simulation)"
+            )
         from .fleet import member_configs, parse_fleet_file, run_fleet
 
         try:
@@ -350,7 +389,7 @@ def run(argv: list[str] | None = None):
 
     from .app import run_app
 
-    return run_app(cfg, sim=sim)
+    return run_app(cfg, sim=sim, use_tui=args.tui or cfg.interactive)
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -13,7 +13,13 @@ full channel axis (one launch shape for the whole run) and run under the
 :class:`RealtimeSupervisor`: a sustained synthesis deficit fails over to
 the native sequential engine, whose bytes are the same, and a
 :class:`DeviceProbe` fails back to the device path once it holds with
-margin. Interactive control is not ported yet (ROADMAP.md).
+margin.
+
+Interactive runs (``cfg.interactive``: live position edits from the TUI,
+``Simulation.set_motion``) take the same window cap and full channel axis,
+so an edit reaches the stream within ``fifo_depth`` blocks whatever the
+backend; they are paced and supervised only when ``cfg.realtime`` is set
+too. The host backends run them block by block.
 """
 
 from __future__ import annotations
@@ -336,11 +342,13 @@ def resolve_device(cfg: SimConfig):
 
 
 def dispatch_window(cfg: SimConfig) -> int:
-    """Blocks per launch of a single scenario. A realtime run caps it at
-    half the FIFO depth: with two windows in flight the producer then runs
-    at most ``fifo_depth`` blocks ahead of written output."""
+    """Blocks per launch of a single scenario. A realtime or interactive
+    run caps it at half the FIFO depth: with two windows in flight the
+    producer then runs at most ``fifo_depth`` blocks ahead of written
+    output — the reference's pipeline latency (sdr.h:24), so a live
+    position edit reaches the stream within the same bound."""
     window = max(1, cfg.dispatch_blocks)
-    if cfg.realtime:
+    if cfg.realtime or cfg.interactive:
         window = max(1, min(window, cfg.fifo_depth // 2))
     return window
 
@@ -429,14 +437,9 @@ def run_simulation(
 
     cuda/torch runs take the pipelined batched path: one kernel launch per
     window of ``cfg.dispatch_blocks`` blocks (realtime: at most half the
-    FIFO depth), with the device work of window k+1 overlapped against the
-    copy back, corrections and sink write of window k. numpy/native runs
-    go block by block."""
-    if cfg.interactive:
-        raise NotImplementedError(
-            "interactive runs are not ported to the PyTorch/CUDA package "
-            "yet; see ROADMAP.md"
-        )
+    FIFO depth, and so for interactive runs), with the device work of
+    window k+1 overlapped against the copy back, corrections and sink write
+    of window k. numpy/native runs go block by block."""
     device = None
     if cfg.backend in DEVICE_BACKENDS:
         device = resolve_device(cfg)  # no card for device="cuda" raises
@@ -628,9 +631,10 @@ def _run_batched(
     if cfg.noise_std_lsb > 0.0:
         from .noise import apply_awgn
     # Channel compaction trims the channel axis to the window's max active
-    # count, which changes at 30 s reallocations. A paced run keeps the
-    # full channel axis: one launch shape for the whole run.
-    compact = not cfg.realtime
+    # count, which changes at 30 s reallocations. A paced or interactive
+    # run keeps the full channel axis: one launch shape for the whole run,
+    # whatever a live edit does to the visible satellites.
+    compact = not (cfg.realtime or cfg.interactive)
 
     def window_args(plans: list, pad: bool) -> tuple:
         # Padding blocks (a short tail window up to W, so every launch

@@ -186,12 +186,37 @@ def test_transient_error_redispatches_same_kernel(fixtures_dir, tmp_path,
     ["--tui"],
     ["-r", "hackrf"],
 ])
-def test_unported_options_raise(fixtures_dir, tmp_path, flag):
-    argv = ["-e", f"{fixtures_dir}/brdc_test.22n", "-d", "0.3",
-            "--device", "cpu", "-r", "iqfile",
-            "--out-file", str(tmp_path / "x.bin")] + flag
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(argv)
-    cfg = SimConfig(nav_file=f"{fixtures_dir}/brdc_test.22n", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.run_simulation(dataclasses.replace(cfg, interactive=True))
+def test_unported_options_raise(fixtures_dir, tmp_path, flag, monkeypatch):
+    """The options the port once refused now run with the JAX package's
+    meaning: the same bytes as its CLI (``-f`` with the download served
+    from the fixture, no network), or, for a radio whose library is
+    missing, the same error."""
+    import ctypes.util
+
+    from gpssim_tpu import cli as jcli
+    from gpssim_tpu.io import fetch as jfetch
+    from gpssim_tpu_torch.io import fetch
+
+    nav = f"{fixtures_dir}/brdc_test.22n"
+    for mod in (fetch, jfetch):
+        monkeypatch.setattr(mod, "fetch_rinex", lambda station, version: nav)
+    monkeypatch.setattr(ctypes.util, "find_library", lambda name: None)
+    argv = ["-e", nav, "-d", "0.3", "-l", LOCATION, "--disable-almanac",
+            "-r", "iqfile"] + flag
+    port = ["--device", "cpu", "--out-file", str(tmp_path / "x.bin")]
+    jax = ["--backend", "numpy", "--out-file", str(tmp_path / "j.bin")]
+    if flag[0] == "-r":
+        for main, extra in ((cli.main, port), (jcli.main, jax)):
+            with pytest.raises(RuntimeError,
+                               match="hackrf hardware not available"):
+                main(argv + extra)
+        return
+    assert cli.main(argv + port) == 0 == jcli.main(argv + jax)
+    got = np.fromfile(tmp_path / "x.bin", dtype=np.int8)
+    assert got.size == 2 * 600_000
+    assert np.array_equal(got, np.fromfile(tmp_path / "j.bin", dtype=np.int8))
+    cfg = SimConfig(nav_file=nav, duration_sec=0.3, almanac_enable=False,
+                    device="cpu", out_file=str(tmp_path / "r.bin"))
+    stats = runner.run_simulation(dataclasses.replace(cfg, interactive=True))
+    assert stats.blocks == 2
+    assert np.array_equal(np.fromfile(cfg.out_file, dtype=np.int8), got)
