@@ -68,6 +68,16 @@ raises on failure (a failed phase ends the run with a non-zero exit):
         (``native/mock_*.c``, built with ``cc``, a fresh copy per run)
         through the sinks' own binding: each capture equals
         ``--backend native``'s, and the mock saw a clean teardown.
+   [4j] ``qa.verify_stream`` on the card on [4c]'s three member files,
+        each against its member config: all verify, and a copy of member
+        0 with block 10 zeroed fails; seconds per member, the
+        correlations' share, and member 0 on the host CPU for scale.
+   [4k] ``acquire(backend="torch")`` on the card on [4]'s native file:
+        the detections of ``backend="numpy"``; both timed.
+   [4l] ``entry()`` on the card: one K1 launch, byte-equal to K1's plain
+        version; then ``entry.dryrun_multichip(2)`` over ``cuda:0``
+        twice, all nine passes (K1 and K2 here, K1 in the gloo children
+        of the two multi-process passes, whose counts they report).
 5. Times: K1 and K2 and their plain versions per 25-block window (CUDA
    events, median; and each kernel's device time per launch from
    torch.profiler, which no slowness of the host can inflate), beside
@@ -1262,6 +1272,185 @@ def radios_e2e(workdir: str) -> dict:
     return out
 
 
+def fleet_member_configs(workdir: str) -> list:
+    """The member configs of [4c]'s ``--fleet`` run, as the CLI made them
+    from its flags and the roster."""
+    from gpssim_tpu_torch import cli
+    from gpssim_tpu_torch.fleet import member_configs, parse_fleet_file
+
+    roster = os.path.join(workdir, "roster.csv")
+    args = cli.build_parser().parse_args([
+        "-e", FIXTURE, "-d", str(FLEET_SECONDS), "--disable-almanac", "-r",
+        "iqfile", "--backend", "cuda", "--fleet", roster, "--out-file",
+        os.path.join(workdir, "fleet.bin")])
+    return member_configs(cli.args_to_config(args), parse_fleet_file(roster))
+
+
+def qa_e2e(workdir: str) -> dict:
+    """[4j] ``qa.verify_stream`` on the card on [4c]'s fleet member files,
+    each against its member config: all verify; a copy of member 0 with
+    block 10 zeroed fails. The time of the correlations (``qa.correlate``,
+    synchronized) is kept apart from the rest (the host's replicas, the
+    reads and the copies to the card). Member 0 again on the host CPU, for
+    scale: the same verdicts, ratios within 1e-4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gpssim_tpu_torch import qa
+
+    cfgs = fleet_member_configs(workdir)
+    blocks = FLEET_SECONDS * 10 - 1
+    correlate, spent = qa.correlate, []
+
+    def timed_correlate(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = correlate(*args)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    qa.correlate = timed_correlate
+    try:
+        members = []
+        for i, cfg in enumerate(cfgs):
+            spent.clear()
+            t = time.perf_counter()
+            rep = qa.verify_stream(cfg.out_file, cfg)
+            wall = time.perf_counter() - t
+            if not rep.ok or rep.blocks != blocks:
+                raise AssertionError(f"[4j] member {i}: {rep}")
+            members.append(dict(
+                wall_s=wall, correlate_s=sum(spent),
+                channels=len(rep.channels),
+                min_ratio=min(c.min_ratio for c in rep.channels),
+                mean_ratios=[c.mean_ratio for c in rep.channels]))
+            print(f"  member {i}: {rep.blocks} blocks, {len(rep.channels)} "
+                  f"PRNs verified in {wall:.3f} s on the card (correlations"
+                  f" {sum(spent):.3f} s, the rest {wall - sum(spent):.3f} "
+                  "s)")
+    finally:
+        qa.correlate = correlate
+    raw = np.fromfile(cfgs[0].out_file, np.int8)
+    block = 2 * cfgs[0].samples_per_epoch
+    raw[10 * block:11 * block] = 0
+    bad = os.path.join(workdir, "qa_damaged.bin")
+    raw.tofile(bad)
+    t = time.perf_counter()
+    rep_bad = qa.verify_stream(bad, cfgs[0])
+    bad_wall = time.perf_counter() - t
+    if rep_bad.ok:
+        raise AssertionError("[4j] member 0 with block 10 zeroed verified")
+    print(f"  member 0 with block 10 zeroed: FAILED as it must (worst ratio "
+          f"{min(c.min_ratio for c in rep_bad.channels):.4f}), "
+          f"{bad_wall:.3f} s")
+    t = time.perf_counter()
+    rep_cpu = qa.verify_stream(cfgs[0].out_file,
+                               dataclasses.replace(cfgs[0], device="cpu"))
+    cpu_wall = time.perf_counter() - t
+    err = max(abs(a - c.mean_ratio) for a, c in
+              zip(members[0]["mean_ratios"], rep_cpu.channels))
+    if not rep_cpu.ok or len(rep_cpu.channels) != members[0]["channels"] \
+            or err >= 1e-4:
+        raise AssertionError(f"[4j] member 0 on the host CPU: {rep_cpu} "
+                             f"(mean ratios differ by up to {err})")
+    per = statistics.median(m["wall_s"] for m in members)
+    print(f"  {len(members)} members: median {per:.3f} s per member on the "
+          f"card; member 0 on the host CPU {cpu_wall:.3f} s (same verdicts, "
+          f"mean ratios within {err:.2e})")
+    return dict(members=members, s_per_member_median=per,
+                damaged_wall_s=bad_wall, cpu_wall_s=cpu_wall,
+                cpu_max_mean_ratio_diff=err)
+
+
+def acquire_e2e(workdir: str) -> dict:
+    """[4k] ``acquire(backend="torch")`` on the card on [4]'s native file
+    against ``backend="numpy"``: the same PRNs, Doppler bins and code
+    phases, SNR within 1e-2; both timed (the torch search's first call,
+    with cuFFT's plans, and the median of 5 after it)."""
+    import torch
+
+    from gpssim_tpu_torch.acquire import acquire, load_iq
+
+    x = load_iq(os.path.join(workdir, "native.bin"), 8)
+    t = time.perf_counter()
+    ref = acquire(x)
+    numpy_s = time.perf_counter() - t
+
+    def on_card():
+        t = time.perf_counter()
+        got = acquire(x, backend="torch", device="cuda")
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t
+
+    got, first_s = on_card()
+    warm = [on_card()[1] for _ in range(5)]
+    a = {d.prn: d for d in got}
+    b = {d.prn: d for d in ref}
+    if set(a) != set(b) or not b:
+        raise AssertionError(f"[4k] PRNs {sorted(a)} on the card, "
+                             f"{sorted(b)} by numpy")
+    snr_err = 0.0
+    for prn, d in b.items():
+        if (a[prn].doppler_hz, a[prn].code_phase_chips) != (
+                d.doppler_hz, d.code_phase_chips):
+            raise AssertionError(f"[4k] PRN {prn}: {a[prn]} vs {d}")
+        snr_err = max(snr_err, abs(a[prn].snr - d.snr) / d.snr)
+    if snr_err >= 1e-2:
+        raise AssertionError(f"[4k] SNR differs by {snr_err:.3e} relative")
+    warm_s = statistics.median(warm)
+    print(f"  {len(b)} PRNs, same Doppler bins and code phases, SNR within "
+          f"{snr_err:.2e} relative; torch on the card {first_s:.4f} s first "
+          f"call, {warm_s:.4f} s median of 5 after; numpy {numpy_s:.4f} s")
+    return dict(prns=sorted(b), torch_first_s=first_s, torch_s=warm_s,
+                torch_runs_s=warm, numpy_s=numpy_s, snr_rel_err=snr_err)
+
+
+def entry_e2e() -> dict:
+    """[4l] ``entry()`` on the card: its one K1 launch byte-equal to K1's
+    plain version on the same args; then ``dryrun_multichip(2)`` over
+    ``["cuda:0"] * 2``, all nine passes, with K1 and K2 launched in this
+    process and K1 in the children of passes 8 and 9 (their counts come
+    back on a JSON line each)."""
+    from gpssim_tpu_torch.entry import dryrun_multichip, entry
+    from gpssim_tpu_torch.ops.args import ARG_ORDER, LANES
+    from gpssim_tpu_torch.ops.synth_torch import synth_blocks_batch_torch
+
+    fn, ex = entry()
+    reset_launches()
+    got = fn(*ex)
+    launches = read_launches()
+    want = synth_blocks_batch_torch(dict(zip(ARG_ORDER, ex)),
+                                    n_rows=-(-300_000 // LANES),
+                                    num_samples=300_000)
+    if launches != {"K1": 1, "K2": 0}:
+        raise AssertionError(f"[4l] entry() launches {launches}")
+    err = max_diff("entry() against K1's plain version", got, want,
+                   f"B={got.shape[0]} N=300000 launches {launches}")
+    ms = time_ms(lambda: fn(*ex), 11, 5, inner=20)
+    dev = device_ms(lambda: fn(*ex), "synth_k1_kernel")
+    print(f"  entry(): {ms:.4f} ms per call (events), device "
+          + (f"{dev:.4f} ms per launch" if dev else "not measured"))
+
+    reset_launches()
+    t = time.perf_counter()
+    res = dryrun_multichip(2, device="cuda:0")
+    wall = time.perf_counter() - t
+    dry = read_launches()
+    kids = res["child_launches"]
+    if len(res["passes"]) != 9 or dry["K1"] < 1 or dry["K2"] < 1 \
+            or kids["K1"] < 1:
+        raise AssertionError(f"[4l] dryrun: {res}, launches here {dry}")
+    print(f"  dryrun_multichip(2) on cuda:0: {len(res['passes'])} passes in "
+          f"{wall:.3f} s; launches in this process {dry}, in the children "
+          f"{kids}; pass walls " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in res["wall_s"].items()))
+    return dict(launches=launches, max_abs_err=err, ms=ms, device_ms=dev,
+                dryrun=dict(res, wall_s_total=wall, launches=dry))
+
+
 def profile_run(what: str, run) -> dict:
     """``run()`` (returning RunStats, or a fleet's list of them) under
     torch.profiler: the host stages (a fleet books them on member 0) and
@@ -1338,25 +1527,32 @@ def device_ms(fn, kernel: str, calls: int = 20) -> float | None:
     """Device time per launch of the kernel whose name holds ``kernel``,
     from torch.profiler over ``calls`` calls of ``fn``: the kernel alone,
     however long the host takes per call (CUDA events around back-to-back
-    calls time the host once its time per call nears the kernel's). None
-    where the profiler records no device time."""
+    calls time the host once its time per call nears the kernel's). A run
+    that records no such kernel is profiled once more; None, with the
+    device events the profiler did see printed, where neither records
+    it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and kernel in e.key]
-    n = sum(e.count for e in events)
-    if not n:
-        return None
-    return sum(e.self_device_time_total for e in events) / n / 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        events = [e for e in device if kernel in e.key]
+        n = sum(e.count for e in events)
+        if n:
+            return sum(e.self_device_time_total for e in events) / n / 1e3
+    seen = sorted({e.key[:80] for e in device})
+    print(f"  profiler: no {kernel} in two runs of {calls} calls; device "
+          f"events seen: {seen if seen else 'none'}")
+    return None
 
 
 def bound(ops: int, nbytes: int, wavefronts: int) -> dict:
@@ -1593,6 +1789,14 @@ def main() -> int:
         e2e["interactive"] = interactive_e2e(workdir)
         print("[4i] HackRF and Pluto mock radios, against --backend native")
         e2e["radios"] = radios_e2e(workdir)
+        print("[4j] qa.verify_stream on the card, [4c]'s fleet members")
+        e2e["qa"] = qa_e2e(workdir)
+        print("[4k] acquire(backend='torch') on the card against numpy, "
+              "[4]'s native file")
+        e2e["acquire"] = acquire_e2e(workdir)
+        print("[4l] entry() on the card, then dryrun_multichip(2) over "
+              "cuda:0 twice")
+        e2e["entry"] = entry_e2e()
     finally:
         for f in os.listdir(workdir):
             os.remove(os.path.join(workdir, f))
@@ -1664,7 +1868,10 @@ def main() -> int:
                     e2e["paced_fleet"]["roundtrip"]["launches"][k],
                 "interactive": e2e["interactive"]["launches"][k],
                 "hackrf": e2e["radios"]["hackrf"]["launches"][k],
-                "pluto": e2e["radios"]["plutosdr"]["launches"][k]}
+                "pluto": e2e["radios"]["plutosdr"]["launches"][k],
+                "entry": e2e["entry"]["launches"][k],
+                "dryrun": e2e["entry"]["dryrun"]["launches"][k],
+                "multihost": e2e["entry"]["dryrun"]["child_launches"][k]}
 
     print(smi)
     print(json.dumps({

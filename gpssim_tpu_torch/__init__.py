@@ -24,6 +24,7 @@ __all__ = [
     "CarrierMode", "LocationConfig", "SampleFormat", "SimConfig",
     "SynthBackend", "TargetConfig", "Simulation", "run_simulation",
     "run_app", "run_fleet", "save_checkpoint", "load_checkpoint",
+    "acquire", "receiver_fix",
 ]
 
 
@@ -44,6 +45,14 @@ def __getattr__(name):  # lazy: keep `import gpssim_tpu_torch` light
         from .fleet import run_fleet
 
         return run_fleet
+    if name == "acquire":
+        from .acquire import acquire
+
+        return acquire
+    if name == "receiver_fix":
+        from .receiver import receiver_fix
+
+        return receiver_fix
     if name in ("save_checkpoint", "load_checkpoint"):
         from . import checkpoint
 

@@ -100,6 +100,16 @@ def _to_device(args: dict, device: torch.device) -> dict:
     return unpack_args(t, spec)
 
 
+def raw_body(kernel: str):
+    """``(args, n_rows, wide) -> (i_rows, q_rows)`` of one device's shard
+    for a mesh ``kernel`` (:data:`KERNELS`)."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel={kernel!r}: expected one of {KERNELS}")
+    body = synth_batch_torch_raw if kernel == "torch" else synth_batch_cuda_raw
+    return lambda args, n_rows, wide: body(args, n_rows=n_rows, wide=wide,
+                                           fuse_a=kernel != "cuda")
+
+
 def make_sharded_synth(mesh: Mesh, n_rows: int, num_samples: int,
                        wide: bool = False, out_bits: int = 16,
                        kernel: str = "cuda-fused"):
@@ -117,13 +127,10 @@ def make_sharded_synth(mesh: Mesh, n_rows: int, num_samples: int,
 
     On CUDA devices ``cuda`` and ``cuda-fused`` launch their kernels or
     raise; CPU devices run the plain versions."""
-    if kernel not in KERNELS:
-        raise ValueError(f"kernel={kernel!r}: expected one of {KERNELS}")
+    body = raw_body(kernel)
     if out_bits not in (8, 16):
         raise ValueError(f"out_bits={out_bits} (8 or 16)")
     nb, nc = mesh.shape["blocks"], mesh.shape["chan"]
-    fuse_a = kernel != "cuda"
-    body = synth_batch_torch_raw if kernel == "torch" else synth_batch_cuda_raw
 
     on_card = any(d.type == "cuda" for row in mesh.devices for d in row)
 
@@ -142,7 +149,7 @@ def make_sharded_synth(mesh: Mesh, n_rows: int, num_samples: int,
             parts = [
                 body(_to_device(_shard(batch, blocks,
                                        slice(j * cs, (j + 1) * cs)), dev),
-                     n_rows=n_rows, wide=wide, fuse_a=fuse_a)
+                     n_rows, wide)
                 for j, dev in enumerate(row)
             ]
             dev0 = row[0]

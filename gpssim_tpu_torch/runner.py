@@ -326,16 +326,22 @@ def pace(blocks: int, t0: float, fifo_depth: int) -> None:
 
 
 def resolve_device(cfg: SimConfig):
-    """The torch device for the cuda/torch backends. ``cuda`` without a
-    card raises: the CPU runs only when the caller asks for it."""
+    """The torch device for the cuda/torch backends (:func:`torch_device`
+    of ``cfg.device``)."""
+    return torch_device(cfg.device)
+
+
+def torch_device(name):
+    """``name`` as a torch device. ``cuda`` without a card raises: the
+    CPU runs only when the caller asks for it."""
     import torch
 
-    dev = torch.device(cfg.device)
+    dev = torch.device(name)
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device={cfg.device!r}: expected cuda or cpu")
+        raise ValueError(f"device={name!r}: expected cuda or cpu")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device={cfg.device!r} but torch finds no CUDA device; pass "
+            f"device={name!r} but torch finds no CUDA device; pass "
             "device='cpu' (--device cpu) to run on the CPU"
         )
     return dev
