@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA package (``gpssim_tpu_torch``).
 
-Run from the root of a checkout on a machine with one CUDA card::
+Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every visible card
+    python3 chip_smoke.py --cards 4  # raises unless 4 cards are visible
 
 It imports nothing of JAX or of the JAX package. Phases, each of which
 raises on failure (a failed phase ends the run with a non-zero exit):
 
-1. Device facts: the card's name and power limit from ``nvidia-smi``.
+1. Device facts: the card's name and power limit from ``nvidia-smi``
+   and, with more than one card, ``nvidia-smi topo -m`` (the links).
 2. Build: every CUDA kernel under ``gpssim_tpu_torch/csrc`` (one ``nvcc``
    each) and the native host engine (strict-parity corrections), all
    started together. Each kernel's registers, shared memory and spills
@@ -75,9 +77,20 @@ raises on failure (a failed phase ends the run with a non-zero exit):
    [4k] ``acquire(backend="torch")`` on the card on [4]'s native file:
         the detections of ``backend="numpy"``; both timed.
    [4l] ``entry()`` on the card: one K1 launch, byte-equal to K1's plain
-        version; then ``entry.dryrun_multichip(2)`` over ``cuda:0``
-        twice, all nine passes (K1 and K2 here, K1 in the gloo children
+        version; then ``entry.dryrun_multichip(2, devices=["cuda:0"] *
+        2)``, all nine passes (K1 and K2 here, K1 in the gloo children
         of the two multi-process passes, whose counts they report).
+   [4m] NCCL ranks, rank r on card r (``chip_smoke.py`` started in
+        processes of their own, ``rank_child``), on the 30 s main
+        scenario: the blocks-axis run (``run_scenario_multihost``, part
+        files merged) and every rank's chan-major stream
+        (``synthesize_chan_major``, the sum on the cards) byte-equal to
+        ``--backend native``; one rank on one card, and 2 and N ranks on
+        N cards, with the sum of one 25-block window timed on the card
+        (NCCL, profiler) and through gloo (host clock). With N >= 2 cards
+        also ``make_sharded_synth`` over an (N, 1) and a (1, N) mesh of
+        distinct cards against K1, [4c]'s fleet over both against its solo
+        native runs, and ``dryrun_multichip(N)`` over distinct cards.
 5. Times: K1 and K2 and their plain versions per 25-block window (CUDA
    events, median; and each kernel's device time per launch from
    torch.profiler, which no slowness of the host can inflate), beside
@@ -122,6 +135,8 @@ KEY_SECONDS = 5  # [4h]
 KEYS = "dewdewdeq"  # [4h]: bearing, speed, vertical speed; one every 0.2 s
 HACKRF_SECONDS = 2.5  # [4i]: 24 blocks, 14.4 MB (the mock holds 16 MiB)
 PLUTO_SECONDS = 0.9  # [4i]: 8 blocks, the mock's whole capture
+MULTI_SECONDS = 30  # [4m]: the main cell's scenario, lengthened
+ALLREDUCE_CALLS = 10  # [4m]: timed calls of the chan-major sum per backend
 
 # Published peaks of one H100 SXM (NVIDIA data sheet and Hopper white
 # paper): 3.35 TB/s of HBM3; 132 SMs at a 1.98 GHz boost clock, each
@@ -1111,11 +1126,12 @@ def interactive_e2e(workdir: str) -> dict:
     real key map, ``TuiApp.handle_key``, every 0.2 s on a TuiApp that is
     built but never run under curses. The recorded edits, replayed at
     their planned indices on ``--backend native``, give the same bytes;
-    no failover, no underrun, and no key waits more than ``fifo_depth``
-    blocks to reach the stream."""
+    no failover, no underrun, and no key waits more than the runner's
+    structural worst case, two windows (2 x 4 = ``fifo_depth`` = 8
+    blocks), to reach the stream."""
     from gpssim_tpu_torch.config import LocationConfig, SimConfig, SynthBackend
     from gpssim_tpu_torch.io.sinks import make_configured_sink
-    from gpssim_tpu_torch.runner import run_simulation
+    from gpssim_tpu_torch.runner import dispatch_window, run_simulation
     from gpssim_tpu_torch.tui import TuiApp
 
     lat, lon, hgt = (float(v) for v in LOCATION.split(","))
@@ -1161,17 +1177,22 @@ def interactive_e2e(workdir: str) -> dict:
     files_equal("interactive run against its native replay", ref.out_file,
                 cfg.out_file, blocks=blocks)
     want = -(-blocks // PACED_WINDOW)
+    # Two windows of W blocks are in flight: a key sent as window i-1
+    # starts to drain (window i planned) lands at the first block of
+    # window i+1, 2W blocks after the written stream, as in the JAX
+    # package's runner (tests/test_torch_interactive.py); 2W = fifo_depth.
+    bound = 2 * dispatch_window(cfg)
     if (stats.blocks != blocks or stats.failovers or stats.underruns
             or launches["K1"] != want or launches["K2"]
-            or max(lat_blocks) > cfg.fifo_depth):
+            or max(lat_blocks) > bound):
         raise AssertionError(
             f"[4h]: {stats.blocks} blocks, {stats.failovers} failovers, "
             f"{stats.underruns} underruns, launches {launches} (K1 {want}),"
-            f" latency {lat_blocks} blocks (at most {cfg.fifo_depth})")
+            f" latency {lat_blocks} blocks (at most {bound})")
     print(f"  interactive paced run: {len(sent)} keys sent, "
           f"{len(sim.landed)} edits landed; key-to-stream latency median "
           f"{statistics.median(lat_blocks)} blocks, max {max(lat_blocks)} "
-          f"(bound {cfg.fifo_depth}); {stats.blocks} blocks, wall "
+          f"(bound {bound}); {stats.blocks} blocks, wall "
           f"{stats.wall_seconds:.3f} s, {stats.underruns} underruns, "
           f"{stats.failovers} failovers; launches {launches}; bytes equal "
           "to the edits replayed on --backend native")
@@ -1410,10 +1431,10 @@ def acquire_e2e(workdir: str) -> dict:
 
 def entry_e2e() -> dict:
     """[4l] ``entry()`` on the card: its one K1 launch byte-equal to K1's
-    plain version on the same args; then ``dryrun_multichip(2)`` over
-    ``["cuda:0"] * 2``, all nine passes, with K1 and K2 launched in this
-    process and K1 in the children of passes 8 and 9 (their counts come
-    back on a JSON line each)."""
+    plain version on the same args; then ``dryrun_multichip(2, devices=
+    ["cuda:0"] * 2)``, all nine passes, with K1 and K2 launched in this
+    process and K1 in the gloo children of passes 8 and 9 (their counts
+    come back on a JSON line each)."""
     from gpssim_tpu_torch.entry import dryrun_multichip, entry
     from gpssim_tpu_torch.ops.args import ARG_ORDER, LANES
     from gpssim_tpu_torch.ops.synth_torch import synth_blocks_batch_torch
@@ -1436,12 +1457,13 @@ def entry_e2e() -> dict:
 
     reset_launches()
     t = time.perf_counter()
-    res = dryrun_multichip(2, device="cuda:0")
+    res = dryrun_multichip(2, devices=["cuda:0"] * 2)
     wall = time.perf_counter() - t
     dry = read_launches()
     kids = res["child_launches"]
     if len(res["passes"]) != 9 or dry["K1"] < 1 or dry["K2"] < 1 \
-            or kids["K1"] < 1:
+            or kids["K1"] < 1 or set(res["child_backends"].values()) != {
+                "gloo"}:
         raise AssertionError(f"[4l] dryrun: {res}, launches here {dry}")
     print(f"  dryrun_multichip(2) on cuda:0: {len(res['passes'])} passes in "
           f"{wall:.3f} s; launches in this process {dry}, in the children "
@@ -1449,6 +1471,396 @@ def entry_e2e() -> dict:
               f"{k} {v:.3f} s" for k, v in res["wall_s"].items()))
     return dict(launches=launches, max_abs_err=err, ms=ms, device_ms=dev,
                 dryrun=dict(res, wall_s_total=wall, launches=dry))
+
+
+def stage_timers() -> dict:
+    """[4m] in a rank's process: wrap the host stages that
+    ``run_scenario_multihost`` calls (planning, collation, the mesh
+    synthesis with its copies, the strict-parity corrections) so that
+    each adds its seconds to the returned dict. The rest of a run's wall
+    is the part file's writes and bookkeeping."""
+    import gpssim_tpu_torch.ops.args as args_mod
+    import gpssim_tpu_torch.ops.synth_seq as seq_mod
+    from gpssim_tpu_torch.parallel import multihost
+    from gpssim_tpu_torch.scenario import Simulation
+
+    spent = dict(plan_s=0.0, collate_s=0.0, synth_s=0.0, corrections_s=0.0)
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return wrapper
+
+    args_mod.collate_plans = timed("collate_s", args_mod.collate_plans)
+    seq_mod.seq_corrections = timed("corrections_s", seq_mod.seq_corrections)
+    seq_mod.apply_corrections = timed("corrections_s",
+                                      seq_mod.apply_corrections)
+    multihost.synthesize_multihost = timed("synth_s",
+                                           multihost.synthesize_multihost)
+    plans = Simulation.iter_plans
+
+    def iter_plans(self):
+        it = plans(self)
+        while True:
+            t = time.perf_counter()
+            plan = next(it, None)
+            spent["plan_s"] += time.perf_counter() - t
+            if plan is None:
+                return
+            yield plan
+
+    Simulation.iter_plans = iter_plans
+    return spent
+
+
+def chan_major_stream(cfg) -> tuple:
+    """[4m] ``cfg``'s whole scenario through ``synthesize_chan_major`` on
+    a chan-major mesh with one column per rank (this rank's cards), in
+    windows of WINDOW blocks on the full channel axis, then the
+    strict-parity corrections: (sha256 of the stream, wall seconds)."""
+    import hashlib
+    import itertools
+
+    from gpssim_tpu_torch.ops.args import LANES, collate_plans
+    from gpssim_tpu_torch.ops.synth_seq import (
+        apply_corrections, seq_corrections_window,
+    )
+    from gpssim_tpu_torch.parallel import multihost
+    from gpssim_tpu_torch.parallel.shard import pad_batch, pad_channels
+    from gpssim_tpu_torch.scenario import Simulation
+
+    t = time.perf_counter()
+    mesh = multihost.global_mesh_chan_major()
+    nb, nc = mesh.shape["blocks"], mesh.shape["chan"]
+    n = cfg.samples_per_epoch
+    sha = hashlib.sha256()
+    it = Simulation(cfg).iter_plans()
+    while plans := list(itertools.islice(it, WINDOW)):
+        batch = collate_plans(plans, compact=False)
+        args, _ = pad_batch(pad_channels(batch.args, nc), nb)
+        out = multihost.synthesize_chan_major(args, mesh, -(-n // LANES), n,
+                                              out_bits=8)
+        for blk, corr in zip(out, seq_corrections_window(plans)):
+            sha.update(apply_corrections(blk.copy(), 8, *corr).tobytes())
+    return sha.hexdigest(), time.perf_counter() - t
+
+
+def profiled_device_ms(fn, name: str, calls: int, before=None
+                       ) -> float | None:
+    """Device time per call of the kernels whose names hold ``name``,
+    from torch.profiler over ``calls`` calls of ``fn``, each after
+    ``before()`` and followed by a synchronize (exactly ``calls`` calls:
+    every rank of a collective makes the same ones), or None where the
+    profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            if before is not None:
+                before()
+            fn()
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and name in e.key]
+    if not sum(e.count for e in events):
+        return None
+    return sum(e.self_device_time_total for e in events) / calls / 1e3
+
+
+def allreduce_times(rank: int, world: int, card: int) -> dict:
+    """[4m] the chan-major sum of one 25-block, 12-channel window at 3
+    Msps over every rank, one card each: ``sum_over_processes`` of int16
+    raw rows (2, 25, 2368, 128) drawn from seed ``rank``, summed as int32
+    (60.6 MB). Its result is held against the int16 sum of every rank's
+    rows, made here from their seeds. Times, over ALLREDUCE_CALLS calls
+    each, every call after a barrier of the ranks on the host (so that
+    they launch together: an NCCL kernel's device time also holds its
+    wait for the last rank to launch): NCCL's all-reduce kernel on the
+    card (profiler, per call) and the NCCL path's wall (host clock,
+    synchronized); then the same sum through a gloo group of the same
+    ranks (a pinned copy to the host, the all-reduce, the copy back) on
+    the host's clock."""
+    import torch
+    import torch.distributed as dist
+
+    from gpssim_tpu_torch.parallel.multihost import sum_over_processes
+
+    dev = torch.device("cuda", card)
+    shape = (2, 25, 2368, 128)
+
+    def rows(r):
+        g = torch.Generator().manual_seed(r)
+        return torch.randint(-2 ** 15, 2 ** 15, shape, generator=g,
+                             dtype=torch.int16)
+
+    mine = [rows(rank).to(dev)]
+    want = sum(rows(r).to(torch.int32) for r in range(world)).to(torch.int16)
+    if not torch.equal(sum_over_processes(mine, dev).cpu(), want):
+        raise AssertionError(f"rank {rank}: NCCL sum != the int16 sum of "
+                             "every rank's rows")
+    gloo = dist.new_group(backend="gloo")
+    if not torch.equal(sum_over_processes(mine, dev, gloo).cpu(), want):
+        raise AssertionError(f"rank {rank}: gloo sum != the int16 sum")
+    buf = torch.empty(shape, dtype=torch.int32, device=dev)
+
+    def walls(fn):
+        out = []
+        for _ in range(ALLREDUCE_CALLS):
+            dist.barrier(group=gloo)
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            out.append(time.perf_counter() - t)
+        return out
+
+    nccl_ms = profiled_device_ms(lambda: dist.all_reduce(buf), "AllReduce",
+                                 ALLREDUCE_CALLS,
+                                 before=lambda: dist.barrier(group=gloo))
+    nccl_wall = walls(lambda: sum_over_processes(mine, dev))
+    gloo_wall = walls(lambda: sum_over_processes(mine, dev, gloo))
+    return dict(bytes=buf.numel() * 4, nccl_device_ms=nccl_ms,
+                nccl_wall_ms=statistics.median(nccl_wall) * 1e3,
+                gloo_wall_ms=statistics.median(gloo_wall) * 1e3,
+                nccl_wall_ms_runs=[w * 1e3 for w in nccl_wall],
+                gloo_wall_ms_runs=[w * 1e3 for w in gloo_wall])
+
+
+def rank_child(spec: dict, rank: int) -> None:
+    """[4m] one rank of a multi-process run, in its own process: join the
+    group on ``spec["cards"][rank]`` (``local_device_ids``: NCCL), run
+    the blocks-axis scenario (``run_scenario_multihost``: its part file,
+    its host stages timed), then the chan-major stream
+    (:func:`chan_major_stream`) and, with more than one rank, the sum's
+    timings (:func:`allreduce_times`). Prints one JSON line: the backend,
+    the launches of each run, the stages, the sha256 of the chan-major
+    stream and the wall-clock ends of the set-up and the blocks-axis run."""
+    import torch.distributed as dist
+
+    from gpssim_tpu_torch.config import LocationConfig, SimConfig, SynthBackend
+    from gpssim_tpu_torch.parallel import multihost
+
+    world, cards = spec["world"], spec["cards"][rank]
+    backend = multihost.initialize(spec["coord"], world, rank,
+                                   local_device_ids=cards)
+    spent = stage_timers()
+    lat, lon, hgt = (float(v) for v in LOCATION.split(","))
+    cfg = SimConfig(nav_file=FIXTURE, duration_sec=float(MULTI_SECONDS),
+                    almanac_enable=False,
+                    location=LocationConfig(lat, lon, hgt),
+                    backend=SynthBackend.CUDA, out_file=spec["out"])
+    dist.barrier(device_ids=[cards[0]])  # the NCCL communicator: set-up
+    t_ready = time.time()
+    reset_launches()
+    t = time.perf_counter()
+    multihost.run_scenario_multihost(cfg)
+    blocks_wall = time.perf_counter() - t
+    t_blocks = time.time()
+    blocks_launches = read_launches()
+    stages = dict(spent, wall_s=blocks_wall)
+    stages["write_other_s"] = blocks_wall - sum(spent.values())
+    reset_launches()
+    sha, chan_wall = chan_major_stream(cfg)
+    chan_launches = read_launches()
+    sums = allreduce_times(rank, world, cards[0]) if world > 1 else None
+    multihost.shutdown()
+    print(json.dumps(dict(
+        backend=backend, cards=cards, t_ready=t_ready, t_blocks=t_blocks,
+        stages=stages, blocks_launches=blocks_launches, chan_sha=sha,
+        chan_wall_s=chan_wall, chan_launches=chan_launches,
+        allreduce=sums)))
+
+
+_RANK_CHILD = """
+import json, sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+chip_smoke.rank_child(json.loads({spec!r}), int(sys.argv[1]))
+"""
+
+
+def multi_rank(workdir: str, world: int, ref: str) -> dict:
+    """[4m] ``world`` ranks, rank r on card r (an NCCL group; one rank on
+    cuda:0 where there is one card): the merged blocks-axis stream and
+    every rank's chan-major stream equal ``ref`` (the 30 s native run).
+    The blocks-axis rate counts from the moment every rank was ready to
+    the last rank's part file, plus ``merge_parts``."""
+    import hashlib
+
+    from gpssim_tpu_torch.entry import _free_port, run_children
+    from gpssim_tpu_torch.parallel.multihost import merge_parts
+
+    out = os.path.join(workdir, f"ranks{world}.bin")
+    spec = dict(world=world, cards=[[r] for r in range(world)],
+                coord=f"tcp://127.0.0.1:{_free_port()}", out=out)
+    # NCCL's own log says how the cards are linked (its transports)
+    log = os.path.join(workdir, f"nccl{world}")
+    env = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_FILE": f"{log}.%p.log"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        res = run_children(_RANK_CHILD.format(
+            repo=REPO, spec=json.dumps(spec)), world, timeout=600)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    links = {}
+    for name in os.listdir(workdir):
+        if name.startswith(f"nccl{world}."):
+            with open(os.path.join(workdir, name), errors="replace") as fp:
+                for m in re.finditer(r" via (\S+)", fp.read()):
+                    links[m.group(1)] = links.get(m.group(1), 0) + 1
+    t = time.perf_counter()
+    merge_parts(out, world)
+    merge_s = time.perf_counter() - t
+    blocks = MULTI_SECONDS * 10 - 1
+    files_equal(f"{world}-rank blocks-axis stream", ref, out, blocks=blocks)
+    with open(ref, "rb") as fp:
+        want = hashlib.sha256(fp.read()).hexdigest()
+    bad = [r for r, x in enumerate(res) if x["chan_sha"] != want]
+    if bad or {x["backend"] for x in res} != {"nccl"}:
+        raise AssertionError(
+            f"{world} ranks: backends {[x['backend'] for x in res]}; the "
+            f"chan-major streams of ranks {bad} != --backend native")
+    launches = {k: sum(x["blocks_launches"][k] + x["chan_launches"][k]
+                       for x in res) for k in ("K1", "K2")}
+    if launches["K1"] < world or launches["K2"]:
+        raise AssertionError(f"{world} ranks: launches {launches}")
+    wall = max(x["t_blocks"] for x in res) - min(x["t_ready"] for x in res)
+    msps = blocks * 300_000 / (wall + merge_s) / 1e6
+    print(f"  {world} rank(s), one card each, over "
+          f"{res[0]['backend']}: blocks-axis {blocks} blocks in {wall:.3f} s "
+          f"+ merge_parts {merge_s:.3f} s = {msps:.2f} Msps; chan-major "
+          "stream walls " + ", ".join(f"{x['chan_wall_s']:.3f}" for x in res)
+          + f" s; launches {launches}; every stream equal to --backend "
+          f"native; NCCL's links (log lines by transport) {links}")
+    for r, x in enumerate(res):
+        print(f"    rank {r} host stages: " + ", ".join(
+            f"{k[:-2]} {v:.4f} s" for k, v in x["stages"].items()))
+    sums = [x["allreduce"] for x in res if x["allreduce"]]
+    if sums:
+        dev = [x["nccl_device_ms"] for x in sums]
+        print(f"    chan-major sum of one 25-block window ({sums[0]['bytes']}"
+              " bytes of int32) per call: NCCL all-reduce device "
+              + ("not measured" if None in dev else ", ".join(
+                  f"{v:.4f}" for v in dev) + " ms by rank")
+              + ", NCCL path wall " + ", ".join(
+                  f"{x['nccl_wall_ms']:.4f}" for x in sums)
+              + " ms, gloo path wall " + ", ".join(
+                  f"{x['gloo_wall_ms']:.3f}" for x in sums) + " ms")
+    return dict(world=world, backend=res[0]["backend"], launches=launches,
+                nccl_links=links, wall_s=wall, merge_s=merge_s, msps=msps,
+                stages=[x["stages"] for x in res],
+                chan_wall_s=[x["chan_wall_s"] for x in res],
+                allreduce=sums or None)
+
+
+def mesh_cards(window, cards: int, workdir: str) -> dict:
+    """[4m] one process over ``cards`` distinct cards: make_sharded_synth
+    over a (cards, 1) and a (1, cards) mesh on the 25-block window, with
+    K1's raw mode and with the two-stage path, against K1's output on
+    cuda:0; then [4c]'s fleet over both meshes, each member against its
+    solo native run, its aggregate realtime factor beside [4c]'s."""
+    import torch
+
+    from gpssim_tpu_torch.config import SimConfig, SynthBackend
+    from gpssim_tpu_torch.fleet import (
+        member_configs, parse_fleet_file, run_fleet,
+    )
+    from gpssim_tpu_torch.ops.synth_cuda import synth_blocks_batch_cuda
+    from gpssim_tpu_torch.parallel.shard import (
+        make_mesh, make_sharded_synth, pad_batch, pad_channels,
+    )
+
+    packed, spec, n, n_rows, wide, args_np = window
+    devices = [torch.device("cuda", i) for i in range(cards)]
+    want = synth_blocks_batch_cuda(on_card(packed, spec), n_rows=n_rows,
+                                   num_samples=n, out_bits=8, wide=wide,
+                                   fuse_a=True).cpu()
+    out = {}
+    for nb, nc in ((cards, 1), (1, cards)):
+        mesh = make_mesh(nb, nc, devices=devices)
+        batch, pad = pad_batch(pad_channels(args_np, nc), nb)
+        for kernel, k in (("cuda-fused", "K1"), ("cuda", "K2")):
+            fn = make_sharded_synth(mesh, n_rows, n, wide=wide, out_bits=8,
+                                    kernel=kernel)
+            reset_launches()
+            got = fn(batch).result()
+            launches = read_launches()
+            got = torch.from_numpy(got[:-pad] if pad else got)
+            if launches != {"K1": 0, "K2": 0, k: nb * nc}:
+                raise AssertionError(f"({nb}, {nc}) mesh, {kernel}: "
+                                     f"launches {launches}")
+            max_diff(f"({nb}, {nc}) mesh of distinct cards, kernel {kernel},"
+                     " against K1", got, want,
+                     f"B={got.shape[0]} N={n} launches {launches}")
+            out[f"{nb}x{nc} {kernel}"] = launches
+        base = SimConfig(nav_file=FIXTURE, duration_sec=float(FLEET_SECONDS),
+                         almanac_enable=False, backend=SynthBackend.CUDA,
+                         sink="iqfile",
+                         out_file=os.path.join(workdir, f"m{nb}x{nc}.bin"))
+        cfgs = member_configs(base, parse_fleet_file(
+            os.path.join(workdir, "roster.csv")))
+        reset_launches()
+        stats = run_fleet(cfgs, mesh=mesh)
+        launches = read_launches()
+        for i in range(len(cfgs)):
+            files_equal(f"({nb}, {nc}) mesh fleet member {i}",
+                        os.path.join(workdir, f"solo{i}.bin"),
+                        cfgs[i].out_file, blocks=FLEET_SECONDS * 10 - 1)
+        if launches["K1"] < nb * nc or launches["K2"]:
+            raise AssertionError(f"({nb}, {nc}) mesh fleet: launches "
+                                 f"{launches}")
+        wall = max(st.wall_seconds for st in stats)
+        agg = sum(st.blocks for st in stats) * 0.1 / wall
+        print(f"  fleet over a ({nb}, {nc}) mesh of distinct cards: wall "
+              f"{wall:.3f} s, aggregate x{agg:.2f} realtime; launches "
+              f"{launches}; every member equal to its solo native run")
+        out[f"{nb}x{nc} fleet"] = dict(launches=launches, wall_s=wall,
+                                       realtime_x_aggregate=agg)
+    return out
+
+
+def multicard_e2e(workdir: str, window, cards: int) -> dict:
+    """[4m] the multi-process and mesh paths on ``cards`` distinct cards:
+    NCCL ranks (one on cuda:0 on a one-card machine) for the 30 s main
+    scenario, blocks-axis and chan-major, against --backend native; with
+    two cards or more, also 2 and ``cards`` ranks, one-process meshes over
+    distinct cards and ``dryrun_multichip(cards)``."""
+    from gpssim_tpu_torch.entry import dryrun_multichip
+
+    ref = os.path.join(workdir, "native30.bin")
+    run_cli("native", ref, seconds=MULTI_SECONDS)
+    out = {"ranks": {w: multi_rank(workdir, w, ref)
+                     for w in sorted({1, min(2, cards), cards})}}
+    if cards < 2:
+        return out
+    out["mesh"] = mesh_cards(window, cards, workdir)
+    reset_launches()
+    t = time.perf_counter()
+    res = dryrun_multichip(cards)
+    wall = time.perf_counter() - t
+    dry = read_launches()
+    want = {"multiproc-dcn": "nccl",
+            "multiproc-dcn4": "nccl" if cards >= 4 else "gloo"}
+    if len(res["passes"]) != 9 or res["child_backends"] != want \
+            or dry["K1"] < 1 or dry["K2"] < 1:
+        raise AssertionError(f"dryrun_multichip({cards}): {res}, launches "
+                             f"here {dry}")
+    print(f"  dryrun_multichip({cards}) over distinct cards: 9 passes in "
+          f"{wall:.3f} s, children over {res['child_backends']}; launches "
+          f"in this process {dry}, in the children {res['child_launches']}")
+    out["dryrun"] = dict(res, wall_s_total=wall, launches=dry)
+    return out
 
 
 def profile_run(what: str, run) -> dict:
@@ -1665,9 +2077,16 @@ def k1_raw_times(window) -> dict:
     )
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cards", type=int, default=None,
+                    help="cards to use (default: every visible card); "
+                    "fewer visible raise")
+    args = ap.parse_args(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
@@ -1677,12 +2096,21 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     t_start = time.perf_counter()
+    visible = torch.cuda.device_count()
+    cards = visible if args.cards is None else args.cards
+    if not 1 <= cards <= visible:
+        raise RuntimeError(f"--cards {cards}: {visible} cards visible")
 
     # 1. device facts
     smi = device_facts()
     kind = torch.cuda.get_device_name(0)
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"device {kind}; {torch.cuda.device_count()} visible")
+          f"device {kind}; {visible} visible, {cards} used")
+    if cards > 1:
+        topo = subprocess.run(["nvidia-smi", "topo", "-m"],
+                              capture_output=True, text=True, timeout=60)
+        print(f"  nvidia-smi topo -m (exit {topo.returncode}):\n"
+              f"{topo.stdout}{topo.stderr}")
 
     # 2. build
     built = build_all()
@@ -1797,6 +2225,9 @@ def main() -> int:
         print("[4l] entry() on the card, then dryrun_multichip(2) over "
               "cuda:0 twice")
         e2e["entry"] = entry_e2e()
+        print(f"[4m] NCCL ranks, one card each, and meshes over {cards} "
+              "distinct card(s), against --backend native")
+        e2e["multicard"] = multicard_e2e(workdir, main_window, cards)
     finally:
         for f in os.listdir(workdir):
             os.remove(os.path.join(workdir, f))
@@ -1871,7 +2302,17 @@ def main() -> int:
                 "pluto": e2e["radios"]["plutosdr"]["launches"][k],
                 "entry": e2e["entry"]["launches"][k],
                 "dryrun": e2e["entry"]["dryrun"]["launches"][k],
-                "multihost": e2e["entry"]["dryrun"]["child_launches"][k]}
+                "multihost": e2e["entry"]["dryrun"]["child_launches"][k],
+                **{f"ranks_{w}": r["launches"][k]
+                   for w, r in multi["ranks"].items()},
+                **{f"mesh_{name}": v["launches"][k] if "fleet" in name
+                   else v[k] for name, v in multi.get("mesh", {}).items()},
+                **({"dryrun_cards": multi["dryrun"]["launches"][k],
+                    "dryrun_cards_children":
+                        multi["dryrun"]["child_launches"][k]}
+                   if "dryrun" in multi else {})}
+
+    multi = e2e["multicard"]
 
     print(smi)
     print(json.dumps({
@@ -1935,4 +2376,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--paced-child"]:
         sys.exit(paced_child(json.loads(sys.argv[2]),
                              sys.argv[3] == "profile"))
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -7,10 +7,12 @@ The counterpart of the JAX package's ``__graft_entry__.py``:
   a 0.5 s fixture scenario at the 300,000-sample block shape, its args on
   the card; with ``device="cpu"`` the plain version over the same batch.
 * :func:`dryrun_multichip` certifies the mesh path end to end in nine
-  passes over ``make_mesh(devices=[device] * n)`` (a device may repeat,
-  so one card or the CPU is enough), each bit-identical to this package's
-  own references (``ops/synth_numpy``; the native engine for the strict
-  multi-process streams).
+  passes over ``n`` distinct cards (``cuda:0`` .. ``cuda:n-1``; fewer
+  visible raise, as the JAX package's dry run asserts its device count),
+  each bit-identical to this package's own references
+  (``ops/synth_numpy``; the native engine for the strict multi-process
+  streams). An explicit ``devices`` list may repeat one card, or the CPU
+  (``device="cpu"``), so one card is enough for it.
 
 Run it as ``python -m gpssim_tpu_torch.entry`` (one call of ``fn``) or
 ``python -m gpssim_tpu_torch.entry dryrun N [--device cpu]``.
@@ -112,30 +114,41 @@ def _mesh_pass(mesh, plans, n_rows: int, num_samples: int, kernel: str,
             f"block): output != sequential reference")
 
 
-def dryrun_multichip(n_devices: int, device="cuda") -> dict:
-    """The sharded synthesis step over an ``n_devices`` mesh of ``device``.
+def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> dict:
+    """The sharded synthesis step over an ``n_devices`` mesh.
 
-    Certifies the mesh path end to end:
+    The mesh's devices: ``devices`` when given (``n_devices`` of them; a
+    device may repeat, e.g. ``["cuda:0"] * 2`` on one card); else, for
+    ``device="cuda"`` (the default), ``n_devices`` distinct cards
+    ``cuda:0`` .. ``cuda:n-1``, raising where fewer are visible; for
+    ``device="cpu"``, the CPU ``n_devices`` times. Certifies the mesh path
+    end to end:
       1. tiny-shape pass on the primary (blocks x chan) layout, the
          device's default mesh kernel (K1's raw mode on a card);
       2. the wide-window variant (low sample rates);
       3. the two-stage path (``kernel="cuda"``: producer and K2);
-      4. a second mesh layout (chan=4; over ``device`` repeated four
-         times where n_devices is not a multiple of 4);
+      4. a second mesh layout (chan=4; the devices cycled to four where
+         n_devices is not a multiple of 4);
       5. FULL 300,000-sample blocks on the primary layout;
       6. the two-stage path at that FULL block shape;
       7. a fleet batch (two interleaved scenarios) through the sharded
          path via run_fleet(mesh=...);
-      8. a two-process gloo run (``parallel/multihost``) whose merged
-         stream equals a single-process native run;
-      9. a FOUR-process gloo run on a chan-major global mesh — the channel
-         sum crosses every process boundary — with all four processes'
+      8. a two-process run (``parallel/multihost``) whose merged stream
+         equals a single-process native run;
+      9. a FOUR-process run on a chan-major global mesh — the channel sum
+         crosses every process boundary — with all four processes'
          streams identical to the single-process native run.
-    Every pass must be bit-identical to its reference. Returns the passes
-    run, each pass's wall seconds and the child processes' K1/K2 launch
-    counts (passes 8 and 9), summed."""
+    Passes 8 and 9 give each child process cards of its own
+    (``local_device_ids``, an NCCL group) where there are at least as many
+    distinct cards as children, and otherwise share them over gloo (the
+    CPU, or one card named several times). Every pass must be
+    bit-identical to its reference. Returns the passes run, each pass's
+    wall seconds, each multi-process pass's backend and the child
+    processes' K1/K2 launch counts (passes 8 and 9), summed."""
     import dataclasses
     import tempfile
+
+    import torch
 
     from .config import LocationConfig, SimConfig, SynthBackend
     from .fleet import run_fleet
@@ -143,8 +156,28 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     from .parallel.shard import make_mesh
     from .runner import run_simulation, torch_device
 
-    dev = torch_device(device)
-    devices = [dev] * n_devices
+    if devices is not None:
+        devices = [torch_device(d) for d in devices]
+        if len(devices) != n_devices:
+            raise ValueError(f"{len(devices)} devices for a dry run over "
+                             f"{n_devices}")
+    else:
+        dev = torch_device(device)
+        if dev.type == "cpu":
+            devices = [dev] * n_devices
+        else:
+            if dev.index is not None and n_devices > 1:
+                raise ValueError(
+                    f"device={device!r} names one card; pass devices="
+                    f"['{dev}'] * {n_devices} to repeat it")
+            visible = torch.cuda.device_count()
+            if visible < n_devices:
+                raise RuntimeError(
+                    f"dryrun_multichip({n_devices}) needs {n_devices} "
+                    f"distinct cards, {visible} visible; pass devices=[...] "
+                    "to repeat one")
+            devices = [torch.device("cuda", i) for i in range(n_devices)]
+    dev = devices[0]
     default = _default_kernel(dev)
     walls = {}
 
@@ -178,9 +211,11 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
                                             default, wide=True))
     timed("two-stage-mesh", lambda: _mesh_pass(mesh, plans, n_rows, tiny,
                                                "cuda"))
-    # a device may repeat, so the chan=4 layout runs at any n
+    # the devices cycled to a multiple of 4, so the chan=4 layout runs at
+    # any n
     n4 = n_devices if n_devices % 4 == 0 else 4
-    mesh4 = make_mesh(n4 // 4, 4, devices=[dev] * n4)
+    mesh4 = make_mesh(n4 // 4, 4,
+                      devices=[devices[i % n_devices] for i in range(n4)])
     timed("chan4-mesh", lambda: _mesh_pass(mesh4, plans, n_rows, tiny,
                                            default))
 
@@ -220,24 +255,29 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     timed("fleet-mesh", fleet_pass)
 
     launches = {"K1": 0, "K2": 0}
+    backends = {}
     if n_devices >= 2:
-        _prepare_children(dev)
+        _prepare_children(devices)
         for name, run in (("multiproc-dcn", _dryrun_multiproc_dcn),
                           ("multiproc-dcn4", _dryrun_multiproc_dcn4)):
             t = time.perf_counter()
-            for k, v in run(dev).items():
-                launches[k] += v
+            res = run(devices)
+            backends[name] = res["backend"]
+            for k in launches:
+                launches[k] += res["launches"][k]
             walls[name] = time.perf_counter() - t
 
     print(
-        f"dryrun_multichip OK on {dev}: mesh {mesh.shape} "
-        f"blocks={len(plans)} samples/block={tiny} "
-        f"(+{' +'.join(list(walls)[1:])} passes)"
+        f"dryrun_multichip OK on {', '.join(map(str, devices))}: mesh "
+        f"{mesh.shape} blocks={len(plans)} samples/block={tiny} "
+        f"(+{' +'.join(list(walls)[1:])} passes; children over "
+        f"{backends or 'none'})"
     )
-    return dict(passes=list(walls), wall_s=walls, child_launches=launches)
+    return dict(passes=list(walls), wall_s=walls, child_launches=launches,
+                child_backends=backends)
 
 
-def _prepare_children(dev) -> None:
+def _prepare_children(devices) -> None:
     """Build the native engine and, on a card, load K1 and K2 before the
     children start, so that none of them builds either itself."""
     from .ops.synth_seq import seq_available
@@ -245,37 +285,62 @@ def _prepare_children(dev) -> None:
     if not seq_available():
         raise RuntimeError("the multi-process passes need the native "
                            "engine (tools/build_native.sh)")
-    if dev.type == "cuda":
+    if any(d.type == "cuda" for d in devices):
         from .ops.synth_cuda import _kernel, _kernel_k2
 
         _kernel()
         _kernel_k2()
 
 
+def child_layout(devices, n_proc: int, per_child: int) -> list:
+    """Each child's ``[local_device_ids, mesh devices]`` for a
+    multi-process pass over ``devices`` (the dry run's): with at least
+    ``n_proc`` distinct cards, child r owns an equal share of them
+    (``local_device_ids``, so the children form an NCCL group) and cycles
+    its own cards to ``per_child`` mesh devices; otherwise the children
+    share the devices (the CPU, or too few cards) over gloo, child r
+    naming device ``r % len`` ``per_child`` times."""
+    import torch
+
+    distinct = list(dict.fromkeys(torch.device(d) for d in devices))
+    cards = [d.index for d in distinct if d.type == "cuda"]
+    if len(cards) == len(distinct) and len(cards) >= n_proc:
+        k = len(cards) // n_proc
+        return [[cards[r * k:(r + 1) * k],
+                 [f"cuda:{cards[r * k + i % k]}" for i in range(per_child)]]
+                for r in range(n_proc)]
+    return [[None, [str(distinct[r % len(distinct)])] * per_child]
+            for r in range(n_proc)]
+
+
 _CHILD_HEAD = """
 import json, os, sys
 sys.path.insert(0, {repo!r})
 import torch
-if {device!r} == "cpu":
+rank = int(sys.argv[1])
+cards, devices = json.loads({layout!r})[rank]
+if devices[0] == "cpu":
     torch.set_num_threads(1)
 from gpssim_tpu_torch.ops import synth_cuda
 from gpssim_tpu_torch.parallel import multihost
-multihost.initialize({coord!r}, {n_proc}, int(sys.argv[1]))
+backend = multihost.initialize({coord!r}, {n_proc}, rank,
+                               local_device_ids=cards)
 from gpssim_tpu_torch.config import SimConfig
 """
 
 _CHILD_TAIL = """
-print(json.dumps({{"launches": synth_cuda.launches}}))
+multihost.shutdown()
+print(json.dumps({{"launches": synth_cuda.launches, "backend": backend}}))
 """
 
 _MH_CHILD = _CHILD_HEAD + """
 cfg = SimConfig(
     nav_file=os.path.join({repo!r}, "fixtures", "brdc_test.22n"),
     duration_sec=0.5, almanac_enable=False, out_file={out!r},
-    device={device!r},
+    device=devices[0],
 )
 multihost.run_scenario_multihost(cfg, chan_shards=2, window_blocks=4,
-                                 devices=[{device!r}] * 4)
+                                 devices=devices)
 """ + _CHILD_TAIL
 
 _MH4_CHILD = _CHILD_HEAD + """
@@ -292,7 +357,7 @@ cfg = SimConfig(
 )
 plans = list(Simulation(cfg).iter_plans())
 batch = collate_plans(plans, compact=False)  # 12 channels / 4 processes
-mesh = multihost.global_mesh_chan_major([{device!r}] * 2)
+mesh = multihost.global_mesh_chan_major(devices)
 assert mesh.shape == {{"blocks": 2, "chan": 4}}, mesh.shape
 out = multihost.synthesize_chan_major(
     batch.args, mesh, -(-cfg.samples_per_epoch // LANES),
@@ -360,16 +425,19 @@ def _native_reference(path: str) -> np.ndarray:
     return np.fromfile(path, dtype=np.int8)
 
 
-def _sum_launches(results: list) -> dict:
-    return {k: sum(r["launches"][k] for r in results) for k in ("K1", "K2")}
+def _children_result(results: list) -> dict:
+    """The children's backend (one for all) and K1/K2 launches, summed."""
+    return dict(backend=results[0]["backend"],
+                launches={k: sum(r["launches"][k] for r in results)
+                          for k in ("K1", "K2")})
 
 
-def _dryrun_multiproc_dcn(dev) -> dict:
-    """Two gloo processes, each with 4 mesh devices (``dev`` repeated):
+def _dryrun_multiproc_dcn(devices) -> dict:
+    """Two processes, each with 4 mesh devices (:func:`child_layout`):
     each synthesizes its block share of a 0.5 s scenario over the global
     (blocks x chan) mesh and streams it to a part file; the merged stream
     must equal a single-process native run. Returns the children's
-    launch counts, summed."""
+    backend and launch counts, summed."""
     import tempfile
 
     from .parallel.multihost import merge_parts
@@ -378,37 +446,38 @@ def _dryrun_multiproc_dcn(dev) -> dict:
         out = os.path.join(td, "mh.bin")
         results = run_children(_MH_CHILD.format(
             repo=REPO, coord=f"tcp://127.0.0.1:{_free_port()}", n_proc=2,
-            out=out, device=str(dev)), 2)
+            out=out, layout=json.dumps(child_layout(devices, 2, 4))), 2)
         merge_parts(out, 2)
         a = np.fromfile(out, dtype=np.int8)
         b = _native_reference(os.path.join(td, "ref.bin"))
         if a.size != b.size or not np.array_equal(a, b):
             raise AssertionError("merged multi-process stream != "
                                  "single-process reference")
-    return _sum_launches(results)
+    return _children_result(results)
 
 
-def _dryrun_multiproc_dcn4(dev) -> dict:
-    """Four gloo processes x 2 mesh devices on the chan-major mesh
+def _dryrun_multiproc_dcn4(devices) -> dict:
+    """Four processes x 2 mesh devices on the chan-major mesh
     (multihost.global_mesh_chan_major): every channel-sum term lives on a
     DIFFERENT process, so the sum itself crosses the process boundary —
     and, being integer, it must still be bit-exact. Each process ends
     with the complete stream; all four must equal the single-process
-    native run. Returns the children's launch counts, summed."""
+    native run. Returns the children's backend and launch counts,
+    summed."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as td:
         out = os.path.join(td, "mh4.bin")
         results = run_children(_MH4_CHILD.format(
             repo=REPO, coord=f"tcp://127.0.0.1:{_free_port()}", n_proc=4,
-            out=out, device=str(dev)), 4)
+            out=out, layout=json.dumps(child_layout(devices, 4, 2))), 4)
         b = _native_reference(os.path.join(td, "ref.bin"))
         for pid in range(4):
             a = np.fromfile(f"{out}.p{pid}", dtype=np.int8)
             if a.size != b.size or not np.array_equal(a, b):
                 raise AssertionError(f"process {pid}: chan-major "
                                      "cross-process stream != reference")
-    return _sum_launches(results)
+    return _children_result(results)
 
 
 def main(argv=None) -> int:
@@ -419,7 +488,8 @@ def main(argv=None) -> int:
                     choices=("entry", "dryrun"))
     ap.add_argument("n_devices", nargs="?", type=int, default=8)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="default cuda; without a card it raises")
+                    help="default cuda: N distinct cards (fewer raise); "
+                    "cpu: the CPU N times")
     args = ap.parse_args(argv)
     if args.mode == "dryrun":
         dryrun_multichip(args.n_devices, device=args.device)

@@ -19,13 +19,21 @@ broadcast), and a global mesh is a small (blocks, chan) grid of
   follow. Integer sums commute with the int16 cast (parallel/shard.py), so
   the placement cannot change a byte.
 
-Processes meet over ``torch.distributed`` with the gloo backend
-(:func:`initialize`, an explicit ``tcp://`` address, world size and rank).
-Gloo reduces host tensors: the chan-major sum copies the rows to the host
-for it and back. NCCL puts no two ranks on one card, so it is not used.
+Processes meet over ``torch.distributed`` (:func:`initialize`, an explicit
+``tcp://`` address, world size and rank), as the JAX package's processes
+meet over ``jax.distributed``. Ranks that name cards of their own
+(``local_device_ids``, one or more per rank) form an NCCL group, and the
+chan-major sum then reduces the rows in place on each rank's card, as the
+JAX package's ``psum`` does on its chips. CPU ranks, and ranks that share
+one card (NCCL refuses two ranks on one device), form a gloo group, which
+sums host tensors: the rows go to a pinned host buffer and back.
 """
 
 from __future__ import annotations
+
+import json
+from datetime import timedelta
+from urllib.parse import urlsplit
 
 import numpy as np
 import torch
@@ -34,32 +42,119 @@ import torch.distributed as dist
 from ..ops.args import ARG_ORDER
 from .shard import Mesh, _shard, _to_device, raw_body
 
+#: this rank's CUDA card indices in an NCCL group (``initialize``'s
+#: ``local_device_ids``); None in a gloo group or before ``initialize``
+_cards: list | None = None
+
+
+def _card_key(index: int) -> str:
+    """What names card ``index`` of this process uniquely on its machine
+    and across machines (every process may number its cards from 0)."""
+    return str(torch.cuda.get_device_properties(index).uuid)
+
+
+def choose_backend(everyone: list) -> str:
+    """The process group's backend from every rank's cards (a list of card
+    keys per rank, None for a rank that named none): ``nccl`` when every
+    rank names cards of its own, ``gloo`` when none does. Raises when the
+    ranks disagree, or when two ranks name one card (NCCL would hang or
+    fail on it at the first collective)."""
+    named = [c is not None for c in everyone]
+    if not any(named):
+        return "gloo"
+    if not all(named):
+        raise ValueError(
+            "ranks disagree on local_device_ids: ranks "
+            f"{[r for r, n in enumerate(named) if n]} name cards, ranks "
+            f"{[r for r, n in enumerate(named) if not n]} do not")
+    owner = {}
+    for rank, keys in enumerate(everyone):
+        for key in keys:
+            if key in owner:
+                raise ValueError(
+                    f"ranks {owner[key]} and {rank} both name card {key}: "
+                    "an NCCL group needs a card of its own for every rank "
+                    "(ranks that share one card leave out local_device_ids "
+                    "and meet over gloo)")
+            owner[key] = rank
+    return "nccl"
+
 
 def initialize(coordinator_address: str, num_processes: int,
-               process_id: int) -> None:
-    """Join the process group over gloo (a no-op when this process has
-    already joined). ``coordinator_address`` is ``tcp://host:port`` (a
-    bare ``host:port`` is taken as tcp); every process gives the same
-    address and world size and its own rank."""
+               process_id: int, local_device_ids=None) -> str:
+    """Join the process group (a no-op when this process has already
+    joined); returns its backend. ``coordinator_address`` is
+    ``tcp://host:port`` (a bare ``host:port`` is taken as tcp); every
+    process gives the same address and world size and its own rank.
+
+    ``local_device_ids`` are the CUDA cards this rank owns, as in
+    ``jax.distributed.initialize``: :func:`local_devices` then returns
+    those cards and no other, the rank's first card becomes its current
+    device, and the group is NCCL. Without them the group is gloo. Before
+    the group forms, every rank publishes its cards in the rendezvous
+    store, and :func:`choose_backend` refuses two ranks on one card, or
+    ranks that disagree, on every rank alike: nothing falls back from
+    NCCL to gloo."""
+    global _cards
     if dist.is_initialized():
-        return
+        return dist.get_backend()
     if "://" not in coordinator_address:
         coordinator_address = f"tcp://{coordinator_address}"
-    dist.init_process_group(
-        backend="gloo", init_method=coordinator_address,
-        world_size=num_processes, rank=process_id,
-    )
+    url = urlsplit(coordinator_address)
+    store = dist.TCPStore(url.hostname, url.port, num_processes,
+                          is_master=process_id == 0,
+                          timeout=timedelta(seconds=300))
+    cards = keys = None
+    if local_device_ids is not None:
+        from ..runner import torch_device
+
+        torch_device("cuda")  # without a card it raises
+        cards = [int(i) for i in local_device_ids]
+        count = torch.cuda.device_count()
+        if not cards or any(not 0 <= i < count for i in cards):
+            raise ValueError(f"local_device_ids={cards}: {count} cards "
+                             "visible")
+        keys = [_card_key(i) for i in cards]
+    store.set(f"gpssim/cards/{process_id}", json.dumps(keys))
+    everyone = [json.loads(store.get(f"gpssim/cards/{r}"))
+                for r in range(num_processes)]
+    # rank 0 serves the store: it waits until every rank has read every
+    # rank's cards, so that its refusal cannot close the store under them
+    store.set(f"gpssim/read/{process_id}", "1")
+    if process_id == 0:
+        store.wait([f"gpssim/read/{r}" for r in range(num_processes)])
+    backend = choose_backend(everyone)
+    if backend == "nccl":
+        # all_gather_object stages on the current device under NCCL
+        torch.cuda.set_device(cards[0])
+    print(f"multihost: rank {process_id} of {num_processes} joins over "
+          f"{backend}" + (f" on cuda:{cards}" if cards else ""), flush=True)
+    dist.init_process_group(backend=backend, store=store,
+                            world_size=num_processes, rank=process_id)
+    _cards = cards
+    return backend
+
+
+def shutdown() -> None:
+    """Leave the process group :func:`initialize` joined (a no-op when
+    there is none)."""
+    global _cards
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _cards = None
 
 
 def local_devices(device="cuda") -> list:
-    """This process's devices: every CUDA device for ``cuda`` (without a
-    card it raises), else the one device named."""
+    """This process's devices: for ``cuda``, the cards it named in
+    :func:`initialize` (``local_device_ids``), else every CUDA device
+    (without a card it raises); otherwise the one device named."""
     from ..runner import torch_device
 
     dev = torch_device(device)
     if dev.type == "cuda" and dev.index is None:
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
+        ids = (_cards if _cards is not None
+               else range(torch.cuda.device_count()))
+        return [torch.device("cuda", i) for i in ids]
     return [dev]
 
 
@@ -82,6 +177,12 @@ class GlobalMesh:
 def _all_devices(devices) -> list:
     """Every process's local devices, grouped by rank: (rank, device)."""
     devices = [torch.device(d) for d in devices]
+    if _cards is not None:
+        foreign = [str(d) for d in devices
+                   if d.type != "cuda" or d.index not in _cards]
+        if foreign:
+            raise ValueError(f"devices {foreign} are not among this rank's "
+                             f"cards {_cards} (local_device_ids)")
     everyone = [None] * dist.get_world_size()
     dist.all_gather_object(everyone, [str(d) for d in devices])
     if len({len(v) for v in everyone}) != 1:
@@ -137,8 +238,9 @@ def synthesize_chan_major(
     everywhere) and makes the raw rows of its own channel range over all
     blocks, split over its local devices (``kernel``: K1's raw mode, the
     two-stage path, or the plain version; CPU devices run the plain
-    versions). The rows go to the host as int32, one ``all_reduce`` sums
-    them over the processes, and each process casts the sum to int16 and
+    versions). One ``all_reduce`` of the rows as int32 sums them over the
+    processes (:func:`sum_over_processes`: on the card under NCCL, on the
+    host under gloo), and each process casts the sum to int16 and
     finalizes it on its first device. Returns the complete quantized batch
     on every process."""
     from ..ops.synth_torch import finalize_rows
@@ -160,16 +262,38 @@ def synthesize_chan_major(
     parts = []
     for i in range(nb):
         dev = mesh.devices[i][col[0]][1]
-        i_rows, q_rows = raw(
+        parts.append(torch.stack(raw(
             _to_device(_shard(batch, slice(i * bs, (i + 1) * bs), chans),
-                       dev), n_rows, wide)
-        parts.append(torch.stack([i_rows, q_rows]).to(torch.int32).cpu())
-    rows = torch.cat(parts, dim=1)  # (2, B, R_pad, 128) int32, on the host
-    dist.all_reduce(rows, op=dist.ReduceOp.SUM)
-    dev0 = mesh.devices[0][col[0]][1]
-    summed = rows.to(dev0).to(torch.int16)
+                       dev), n_rows, wide)))
+    summed = sum_over_processes(parts, mesh.devices[0][col[0]][1])
     return finalize_rows(summed[0], summed[1], num_samples,
                          out_bits).cpu().numpy()
+
+
+def sum_over_processes(parts: list, dev0, group=None) -> torch.Tensor:
+    """The modular sum over the processes of ``group`` (default: every
+    process) of this process's raw rows: ``parts`` are int16 (2, b,
+    R_pad, 128), concatenated on the block axis; the int16 sum (2, B,
+    R_pad, 128) comes back on ``dev0``.
+
+    NCCL has no int16 sum, so the rows are summed as int32 and cast back:
+    the cast of the int32 sum is the int16 sum (int16 truncation is a ring
+    homomorphism), so the placement cannot change a byte. Under NCCL the
+    int32 rows are reduced in place on ``dev0`` (the rank's card); under
+    gloo they go to a pinned host buffer (a plain one without a card) and
+    back. Only the buffer's device differs."""
+    on_card = dist.get_backend(group) == "nccl"
+    where = dev0 if on_card else torch.device("cpu")
+    B = sum(p.shape[1] for p in parts)
+    rows = torch.empty((2, B, *parts[0].shape[2:]), dtype=torch.int32,
+                       device=where,
+                       pin_memory=not on_card and dev0.type == "cuda")
+    b = 0
+    for p in parts:
+        rows[:, b:b + p.shape[1]].copy_(p)
+        b += p.shape[1]
+    dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=group)
+    return rows.to(dev0).to(torch.int16)
 
 
 def process_block_slice(n_blocks: int, mesh: GlobalMesh) -> slice:

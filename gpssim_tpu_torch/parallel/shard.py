@@ -19,7 +19,13 @@ device of it:
   ones. With chan == 1 nothing crosses devices and nothing is summed.
 
 A device may appear in a mesh more than once: a (1, 2) mesh over one
-card, or one CPU, runs the channel sum on that device.
+card, or one CPU, runs the channel sum on that device. Over distinct
+cards, each card's copies and kernels run on its own current stream (the
+kernels' wrappers take the stream of their tensors' card); the copy of a
+partial row to the range's first card is ordered after the stream that
+made it and before the sum (a copy between cards waits on both cards'
+streams); and the host buffer is written by the finalize's stream, after
+the sum, with one event per block range (``runner.InFlight``).
 """
 
 from __future__ import annotations

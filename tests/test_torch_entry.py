@@ -35,14 +35,22 @@ def test_entry_cpu_equals_jax_numpy_reference(fixtures_dir):
     assert np.array_equal(out.numpy(), ref)
 
 
-def test_dryrun_multichip_cpu_runs_all_nine_passes():
-    res = entry.dryrun_multichip(2, device="cpu")
+@pytest.mark.parametrize("kw", [dict(device="cpu"),
+                                dict(devices=["cpu", "cpu"])],
+                         ids=["device-cpu", "explicit-list"])
+def test_dryrun_multichip_cpu_runs_all_nine_passes(kw):
+    """The CPU named twice, by ``device`` or by an explicit list (as one
+    card is named twice on a machine with one card): all nine passes, the
+    children sharing it over gloo."""
+    res = entry.dryrun_multichip(2, **kw)
     assert res["passes"] == [
         "tiny", "wide-window", "two-stage-mesh", "chan4-mesh",
         "full-300000-sample-blocks", "two-stage-full-block", "fleet-mesh",
         "multiproc-dcn", "multiproc-dcn4",
     ]
     assert res["child_launches"] == {"K1": 0, "K2": 0}
+    assert res["child_backends"] == {"multiproc-dcn": "gloo",
+                                     "multiproc-dcn4": "gloo"}
 
 
 def test_mesh_pass_fails_on_one_differing_sample(monkeypatch):

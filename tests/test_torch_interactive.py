@@ -305,3 +305,63 @@ def test_run_app_headless_without_tty(fixtures_dir, tmp_path,
         SimConfig(**_kw(fixtures_dir, ref, duration_sec=1.0)),
         interactive=False, backend=SynthBackend.NATIVE))
     assert np.array_equal(_bytes(out), _bytes(ref))
+
+
+#: blocks written when a key arrives (it is sent from inside the sink's
+#: write of that block): the first, a middle and the last block of the
+#: windows the runner drains
+KEYS_AT = (0, 2, 3, 4, 7, 8, 11)
+
+
+def key_latencies(sim, run) -> list:
+    """``run(sink, sim)`` with a key (``set_motion``) sent from inside the
+    sink's write of each block in KEYS_AT, on either package's
+    Simulation; returns each key's latency in blocks: the planned index
+    at which it lands minus the blocks written when it was sent."""
+    base = type(sim)
+    sent, latencies = [], []
+
+    class Keyed(base):
+        def step(self):
+            latencies.extend(self._iumd - 1 - w for w in sent)
+            sent.clear()
+            return base.step(self)
+
+    class KeySink:
+        written = 0
+
+        def init(self, cfg):
+            pass
+
+        def write(self, blk):
+            if self.written in KEYS_AT:
+                sim.set_motion(velocity=10.0 + self.written)
+                sent.append(self.written)
+            self.written += 1
+
+        def close(self):
+            pass
+
+    sim.__class__ = Keyed
+    run(KeySink(), sim)
+    return latencies
+
+
+def test_key_to_stream_latency_equals_jax_structure(fixtures_dir, tmp_path):
+    """Two windows of ``dispatch_window`` = W blocks are in flight, so a
+    key sent while window i-1 drains (window i already planned) lands at
+    the first block of window i+1: 2W - w % W blocks after the written
+    stream. The worst case, 2W = ``fifo_depth`` = 8, is a key sent as the
+    first block of a window is written. The JAX package's runner lands
+    the same keys at the same blocks."""
+    cfg = SimConfig(**_kw(fixtures_dir, tmp_path / "p.bin",
+                          backend=SynthBackend.CUDA, device="cpu"))
+    W = runner.dispatch_window(cfg)
+    port = key_latencies(Simulation(cfg), lambda sink, sim:
+                         runner.run_simulation(cfg, sink=sink, sim=sim))
+    jcfg = JSimConfig(**_kw(fixtures_dir, tmp_path / "j.bin",
+                            backend=JSynthBackend.JAX))
+    jax = key_latencies(JSimulation(jcfg), lambda sink, sim:
+                        jrunner.run_simulation(jcfg, sink=sink, sim=sim))
+    assert port == jax == [2 * W - w % W for w in KEYS_AT]
+    assert max(port) == 2 * W == cfg.fifo_depth == 8

@@ -89,9 +89,11 @@ def test_four_chan_major_processes_match_jax(fixtures_dir, tmp_path):
     out = str(tmp_path / "mh4.bin")
     results = entry.run_children(entry._MH4_CHILD.format(
         repo=REPO, coord=f"tcp://127.0.0.1:{entry._free_port()}", n_proc=4,
-        out=out, device="cpu"), 4, timeout=300)
-    # CPU devices run the plain versions: no kernel launches
-    assert entry._sum_launches(results) == {"K1": 0, "K2": 0}
+        out=out, layout=json.dumps(entry.child_layout(["cpu"], 4, 2))), 4,
+        timeout=300)
+    # CPU devices run the plain versions over gloo: no kernel launches
+    assert entry._children_result(results) == {
+        "backend": "gloo", "launches": {"K1": 0, "K2": 0}}
     b = _jax_bytes(fixtures_dir, str(tmp_path / "ref.bin"))
     for pid in range(4):
         a = np.fromfile(f"{out}.p{pid}", dtype=np.int8)
