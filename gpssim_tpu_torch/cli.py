@@ -195,8 +195,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Resume a scenario from a snapshot written by "
                         "--checkpoint (of this package or of gpssim_tpu)")
     p.add_argument("--profile-dir", metavar="path",
-                   help="Write a torch.profiler trace of the run into this "
-                        "directory")
+                   help="Write a torch.profiler trace of the run "
+                        "(trace.json) into this directory, with the "
+                        "pipeline's gpssim.<stage>#<window> spans")
     p.add_argument("--metrics-file", metavar="path",
                    help="Append a JSONL metrics record (throughput, "
                         "position, channels) at each 30 s-of-signal "

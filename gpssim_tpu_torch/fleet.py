@@ -261,9 +261,13 @@ def run_fleet(
     transport-bound deficits (some sink backlogged) are logged, never
     failed over. The supervisor's events, failovers, failbacks and
     failover latency are reported on member 0's stats.
+
+    Each stage of a batch is a :func:`trace.span` under the batch's
+    sequence number.
     """
     _check_compatible(cfgs)
     from .ops.args import collate_plans, pack_args
+    from .trace import span
 
     cfg0 = cfgs[0]
     realtime = cfg0.realtime
@@ -340,15 +344,17 @@ def run_fleet(
     if mesh is not None:
         W += (-W) % nb  # full batches divide evenly over the blocks axis
 
-    def window_dispatch(plans: list, pad: bool):
+    def window_batch(plans: list, pad: bool):
         if pad and len(plans) < W:
             plans = plans + [plans[-1]] * (W - len(plans))
         # Bucketed compaction: a fleet mixes scenarios, so the batch's
         # max-active count varies batch to batch; multiple-of-4 extents
         # bound the distinct launch shapes. A realtime fleet keeps the
         # full channel axis: one launch shape for the whole run.
-        batch = collate_plans(plans, int_nco=int_nco, compact=not realtime,
-                              compact_multiple=4)
+        return collate_plans(plans, int_nco=int_nco, compact=not realtime,
+                             compact_multiple=4)
+
+    def batch_dispatch(batch):
         if mesh is None:
             packed, pspec = pack_args(batch.args)
 
@@ -364,6 +370,9 @@ def run_fleet(
                 return sharded(a)
 
         return dispatch
+
+    def window_dispatch(plans: list, pad: bool):
+        return batch_dispatch(window_batch(plans, pad))
 
     stats = [RunStats() for _ in cfgs]
     if realtime:
@@ -384,7 +393,8 @@ def run_fleet(
                                channels=-(-cfg0.num_channels // nc))
     t0 = time.perf_counter()
     it = _interleave_plans(sims)
-    pending: deque = deque()  # (out, redispatch, [(member, plan)], snap)
+    # (out, redispatch, [(member, plan)], snap, batch number)
+    pending: deque = deque()
     any_full = False
     inited = 0
     live_ok = True  # live sim state corresponds to the written blocks
@@ -394,66 +404,79 @@ def run_fleet(
         for c, s in zip(cfgs, sinks):
             s.init(c)
             inited += 1
-        while True:
+        for k in itertools.count():
             ts = time.perf_counter()
-            tagged = list(itertools.islice(it, W))
+            with span("plan", k):
+                tagged = list(itertools.islice(it, W))
             tp = time.perf_counter()
             if tagged:
                 # Planning is a shared host pass; book it on member 0 so
                 # sum(st.plan_seconds) stays meaningful.
                 stats[0].plan_seconds += tp - ts
-                dispatch = window_dispatch([p for _, p in tagged],
-                                           pad=any_full)
+                with span("collate", k):
+                    batch = window_batch([p for _, p in tagged],
+                                         pad=any_full)
+                with span("pack", k):
+                    dispatch = batch_dispatch(batch)
                 any_full = any_full or len(tagged) == W
-                out = dispatch()
+                with span("launch", k):
+                    out = dispatch()
                 stats[0].synth_seconds += time.perf_counter() - tp
-                pending.append(
-                    (out, dispatch, tagged,
-                     fsnap() if fsnap is not None else None)
-                )
+                snap = None
+                if fsnap is not None:
+                    with span("snapshot", k):
+                        snap = fsnap()
+                pending.append((out, dispatch, tagged, snap, k))
             if (not tagged and pending) or len(pending) >= 2:
-                out, redispatch, done, snap = pending.popleft()
+                out, redispatch, done, snap, done_k = pending.popleft()
                 tf = time.perf_counter()
-                host, retried = fetch_batch(out, redispatch)
+                with span("wait", done_k):
+                    host, retried = fetch_batch(out, redispatch)
                 tc = time.perf_counter()
                 stats[0].fetch_seconds += tc - tf
                 stats[0].retries += retried  # one re-dispatch, booked once
                 blocks = list(host[:len(done)])
                 if strict:
-                    corrs = seq_corrections_window([p for _, p in done],
-                                                   int_nco=int_nco)
-                    blocks = [apply_corrections(blk, bits, *corr)
-                              for blk, corr in zip(blocks, corrs)]
+                    with span("correct", done_k):
+                        corrs = seq_corrections_window(
+                            [p for _, p in done], int_nco=int_nco)
+                        blocks = [apply_corrections(blk, bits, *corr)
+                                  for blk, corr in zip(blocks, corrs)]
                 stats[0].correct_seconds += time.perf_counter() - tc
-                for blk, (member, plan) in zip(blocks, done):
-                    mc = cfgs[member]
-                    if mc.noise_std_lsb > 0.0:
-                        # Keyed per member stream so a fleet member's
-                        # noisy bytes equal its solo run's.
-                        blk = apply_awgn(
-                            blk, bits, mc.noise_std_lsb, mc.noise_seed, 0,
-                            base_index[member] + stats[member].blocks,
-                        )
-                    sinks[member].write(blk)
-                    st = stats[member]
-                    st.blocks += 1
-                    st.samples += plan.num_samples
-                    st.wall_seconds = time.perf_counter() - t0
+                with span("sink", done_k):
+                    for blk, (member, plan) in zip(blocks, done):
+                        mc = cfgs[member]
+                        if mc.noise_std_lsb > 0.0:
+                            # Keyed per member stream so a fleet member's
+                            # noisy bytes equal its solo run's.
+                            blk = apply_awgn(
+                                blk, bits, mc.noise_std_lsb, mc.noise_seed,
+                                0, base_index[member] + stats[member].blocks,
+                            )
+                        sinks[member].write(blk)
+                        st = stats[member]
+                        st.blocks += 1
+                        st.samples += plan.num_samples
+                        st.wall_seconds = time.perf_counter() - t0
                 if snap is not None:
                     consistent = snap  # matches the blocks just written
                     save_tick(stats[0].blocks, lambda: snap)
                 if on_batch is not None:
-                    on_batch(stats)
+                    with span("hook", done_k):
+                        on_batch(stats)
                 # Pace on the slowest LIVE member and watchdog it: members
                 # that wrote their full scenario must not pin the minimum
                 # (a frozen count would grow the lag without bound and
                 # fire a spurious whole-fleet failover).
                 live = (_live_min_blocks(stats, totals) if realtime
                         else None)
+                verdict = None
                 if live is not None:
                     agg.blocks = live
-                    pace(live, t0, cfg0.fifo_depth)
-                if live is not None and supervisor.check(t0) == "failover":
+                    with span("pace", done_k):
+                        pace(live, t0, cfg0.fifo_depth)
+                        verdict = supervisor.check(t0)
+                if verdict == "failover":
                     # Whole-fleet failover: write the in-flight batches'
                     # plans natively (never fetched through the deficient
                     # path) and carry the round-robin on the native engine
@@ -583,7 +606,7 @@ def _fleet_native_tail(
     ]
 
     while pending:
-        _out, _redispatch, done, snap = pending.popleft()
+        _out, _redispatch, done, snap, _k = pending.popleft()
         for member, plan in done:
             writers[member](plan)
         live = _live_min_blocks(stats, totals)

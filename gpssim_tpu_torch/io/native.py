@@ -1,14 +1,20 @@
-"""ctypes binding for the native host runtime (native/gpssim_native.cc).
+"""ctypes bindings for the port's native host code.
 
-Provides the C++ ring-FIFO-backed streaming IQ writer and the vectorized
-int16→int8 quantizer. The library is built on demand with g++ (see
-tools/build_native.sh); ``available()`` reports whether it can be used so
+Two libraries. The shared host runtime (native/gpssim_native.cc, built by
+tools/build_native.sh) gives the sequential engine (``ops/synth_seq``) and
+the vectorized int16→int8 quantizer. The port's own sink runtime
+(``io/fifo.cc``) gives the ring-FIFO-backed streaming IQ writer and the
+paced streamer, whose FIFOs count their producer's waits and copies and
+their depth; it is built on demand with g++ into ``build/native/`` under a
+name that hashes its source, so a library built from an older source never
+loads. ``available()`` reports whether the sink runtime can be used, so
 callers fall back to the pure-Python sink gracefully.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -23,10 +29,19 @@ _LIB_PATH = _LIB_OVERRIDE or os.path.join(
     _ROOT, "native", "libgpssim_native.so"
 )
 _BUILD = os.path.join(_ROOT, "tools", "build_native.sh")
+_FIFO_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "fifo.cc")
+_FIFO_DIR = os.path.join(_ROOT, "build", "native")
+
+#: the FIFO counters of ``gwriter_stats`` / ``gstream_stats``, in the order
+#: of ``enum Stat`` in io/fifo.cc
+FIFO_STATS = ("acquire_wait_ns", "copy_ns", "depth_sum", "dequeued")
 
 _lib = None
 _lib_lock = threading.Lock()
 _load_error: str | None = None
+_fifo = None
+_fifo_error: str | None = None
 
 
 def _load():
@@ -46,6 +61,52 @@ def _load():
             _load_error = str(e)
             return None
 
+        lib.gquantize_16to8.restype = None
+        lib.gquantize_16to8.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+        ]
+        _lib = lib
+        return _lib
+
+
+def fifo_lib_path() -> str:
+    """Where the sink runtime built from ``io/fifo.cc`` goes: its name
+    hashes the source."""
+    with open(_FIFO_SRC, "rb") as fp:
+        digest = hashlib.sha256(fp.read()).hexdigest()[:16]
+    return os.path.join(_FIFO_DIR, f"libfifo-{digest}.so")
+
+
+def _build_fifo() -> str:
+    out = fifo_lib_path()
+    if not os.path.exists(out):
+        os.makedirs(_FIFO_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"  # renamed over: never half-written
+        subprocess.run(
+            ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-pthread",
+             "-o", tmp, _FIFO_SRC],
+            check=True, capture_output=True, text=True,
+        )
+        os.replace(tmp, out)
+    return out
+
+
+def _load_fifo():
+    global _fifo, _fifo_error
+    with _lib_lock:
+        if _fifo is not None or _fifo_error is not None:
+            return _fifo
+        try:
+            lib = ctypes.CDLL(_build_fifo())
+        except subprocess.CalledProcessError as e:
+            _fifo_error = f"{e}: {e.stderr[-2000:]}"
+            return None
+        except OSError as e:
+            _fifo_error = str(e)
+            return None
+
+        handle = [ctypes.c_void_p]
+        stats = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
         lib.gwriter_open.restype = ctypes.c_void_p
         lib.gwriter_open.argtypes = [
             ctypes.c_char_p, ctypes.c_int, ctypes.c_long,
@@ -55,15 +116,15 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
         ]
         lib.gwriter_depth_used.restype = ctypes.c_int
-        lib.gwriter_depth_used.argtypes = [ctypes.c_void_p]
+        lib.gwriter_depth_used.argtypes = handle
         lib.gwriter_bytes_written.restype = ctypes.c_longlong
-        lib.gwriter_bytes_written.argtypes = [ctypes.c_void_p]
+        lib.gwriter_bytes_written.argtypes = handle
+        lib.gwriter_stats.restype = None
+        lib.gwriter_stats.argtypes = stats
+        lib.gwriter_finish.restype = ctypes.c_int
+        lib.gwriter_finish.argtypes = handle
         lib.gwriter_close.restype = ctypes.c_int
-        lib.gwriter_close.argtypes = [ctypes.c_void_p]
-        lib.gquantize_16to8.restype = None
-        lib.gquantize_16to8.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
-        ]
+        lib.gwriter_close.argtypes = handle
         lib.gstream_open.restype = ctypes.c_void_p
         lib.gstream_open.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_long,
@@ -74,31 +135,40 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
         ]
         lib.gstream_depth_used.restype = ctypes.c_int
-        lib.gstream_depth_used.argtypes = [ctypes.c_void_p]
+        lib.gstream_depth_used.argtypes = handle
         lib.gstream_bytes_sent.restype = ctypes.c_longlong
-        lib.gstream_bytes_sent.argtypes = [ctypes.c_void_p]
+        lib.gstream_bytes_sent.argtypes = handle
         lib.gstream_underruns.restype = ctypes.c_long
-        lib.gstream_underruns.argtypes = [ctypes.c_void_p]
+        lib.gstream_underruns.argtypes = handle
         lib.gstream_started.restype = ctypes.c_int
-        lib.gstream_started.argtypes = [ctypes.c_void_p]
+        lib.gstream_started.argtypes = handle
+        lib.gstream_stats.restype = None
+        lib.gstream_stats.argtypes = stats
         lib.gstream_finish.restype = ctypes.c_int
         lib.gstream_finish.argtypes = [ctypes.c_void_p, ctypes.c_double]
-        if hasattr(lib, "gstream_halt"):  # stale .so tolerance
-            lib.gstream_halt.restype = ctypes.c_int
-            lib.gstream_halt.argtypes = [ctypes.c_void_p]
+        lib.gstream_halt.restype = ctypes.c_int
+        lib.gstream_halt.argtypes = handle
         lib.gstream_close.restype = ctypes.c_int
-        lib.gstream_close.argtypes = [ctypes.c_void_p]
-        _lib = lib
-        return _lib
+        lib.gstream_close.argtypes = handle
+        _fifo = lib
+        return _fifo
 
 
 def available() -> bool:
-    return _load() is not None
+    """Whether the sink runtime (the native writer and streamer) loads."""
+    return _load_fifo() is not None
 
 
 def load_error() -> str | None:
-    _load()
-    return _load_error
+    _load_fifo()
+    return _fifo_error
+
+
+def _fifo_stats(fn, handle, **extra) -> dict:
+    """``fn``'s counters of ``handle`` as a dict keyed by FIFO_STATS."""
+    out = (ctypes.c_longlong * len(FIFO_STATS))()
+    fn(handle, out)
+    return {**dict(zip(FIFO_STATS, out)), **extra}
 
 
 def quantize_16to8(iq16: np.ndarray) -> np.ndarray:
@@ -125,15 +195,19 @@ class NativeIqWriter:
 
     def __init__(self, path: str, fifo_depth: int = 8,
                  block_bytes: int = 1_200_000):
-        lib = _load()
+        lib = _load_fifo()
         if lib is None:
-            raise RuntimeError(f"native runtime unavailable: {_load_error}")
+            raise RuntimeError(f"native runtime unavailable: {_fifo_error}")
         self._lib = lib
         self._h = lib.gwriter_open(
             path.encode(), int(fifo_depth), int(block_bytes)
         )
         if not self._h:
             raise OSError(f"cannot open {path!r} for writing")
+
+    #: the FIFO's counters and the bytes written (FIFO_STATS, ``bytes``)
+    #: after close(), once the drain has finished
+    final_stats: dict | None = None
 
     def write(self, block: np.ndarray) -> None:
         buf = np.ascontiguousarray(block)
@@ -153,7 +227,13 @@ class NativeIqWriter:
 
     def close(self) -> int:
         if self._h:
-            rc = self._lib.gwriter_close(self._h)
+            # Flush first, so the counters are final.
+            rc = self._lib.gwriter_finish(self._h)
+            self.final_stats = _fifo_stats(
+                self._lib.gwriter_stats, self._h,
+                bytes=self._lib.gwriter_bytes_written(self._h))
+            rc_close = self._lib.gwriter_close(self._h)
+            rc = rc or rc_close
             self._h = None
             if rc != 0:
                 raise OSError(f"native writer close failed (rc={rc})")
@@ -166,15 +246,15 @@ class NativeStreamer:
     The native drain thread implements the reference's TX contract: the
     start-full FIFO barrier (fifo.c:97-103, sdr_iqfile.c:74), pacing at
     the DAC byte rate, and underrun accounting (see Streamer in
-    native/gpssim_native.cc). ``fd`` is borrowed — the caller keeps the
+    io/fifo.cc). ``fd`` is borrowed — the caller keeps the
     socket object alive and closes it after ``close()``."""
 
     def __init__(self, fd: int, fifo_depth: int = 8,
                  block_bytes: int = 1_200_000, bytes_per_sec: float = 0.0,
                  start_timeout_s: float = 30.0):
-        lib = _load()
+        lib = _load_fifo()
         if lib is None:
-            raise RuntimeError(f"native runtime unavailable: {_load_error}")
+            raise RuntimeError(f"native runtime unavailable: {_fifo_error}")
         self._lib = lib
         self._h = lib.gstream_open(
             int(fd), int(fifo_depth), int(block_bytes),
@@ -182,6 +262,10 @@ class NativeStreamer:
         )
         if not self._h:
             raise OSError("cannot start native streamer")
+
+    #: the FIFO's counters and the bytes sent (FIFO_STATS, ``bytes``) after
+    #: close(), once the paced drain has finished
+    final_stats: dict | None = None
 
     def write(self, block: np.ndarray) -> None:
         buf = np.ascontiguousarray(block)
@@ -212,7 +296,7 @@ class NativeStreamer:
         drain keeps sending queued blocks but a drained-out tail no
         longer counts as underruns (the stream is complete). Multi-sink
         producers call this on every sink before the blocking closes."""
-        if self._h and hasattr(self._lib, "gstream_halt"):
+        if self._h:
             self._lib.gstream_halt(self._h)
 
     def close(self, flush_timeout_s: float = 10.0) -> int:
@@ -224,6 +308,8 @@ class NativeStreamer:
             self.final_bytes_sent = self._lib.gstream_bytes_sent(self._h)
             self.final_underruns = self._lib.gstream_underruns(self._h)
             self.final_started = bool(self._lib.gstream_started(self._h))
+            self.final_stats = _fifo_stats(self._lib.gstream_stats, self._h,
+                                           bytes=self.final_bytes_sent)
             self._lib.gstream_close(self._h)
             self._h = None
             if rc != 0:

@@ -66,7 +66,7 @@ class IqFileSink(Sink):
     A writer thread drains a bounded FIFO so synthesis overlaps file I/O,
     mirroring the reference's producer/consumer split. With
     ``engine='native'`` (or 'auto' when the C++ runtime is built) the FIFO
-    and drain thread are the native ones from native/gpssim_native.cc.
+    and drain thread are the native ones from io/fifo.cc.
     """
 
     name = "iqfile"
@@ -82,6 +82,9 @@ class IqFileSink(Sink):
         self._fp = None
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        #: the native FIFO's counters at close() (io/native.FIFO_STATS and
+        #: ``bytes``); None on the Python FIFO
+        self.fifo_stats: dict | None = None
 
     def init(self, cfg=None) -> None:
         if self.engine in ("auto", "native"):
@@ -138,8 +141,11 @@ class IqFileSink(Sink):
 
     def close(self) -> None:
         if self._native is not None:
-            self._native.close()
-            self._native = None
+            try:
+                self._native.close()
+            finally:
+                self.fifo_stats = self._native.final_stats
+                self._native = None
             return
         if self.threaded and self._thread is not None:
             # Let the writer drain before halting — unless it died (the
@@ -190,6 +196,9 @@ class TcpSink(Sink):
         self._started = threading.Event()
         self._py_underruns = 0
         self._py_bytes = 0
+        #: the native FIFO's counters at close() (io/native.FIFO_STATS and
+        #: ``bytes``); None on the Python FIFO
+        self.fifo_stats: dict | None = None
 
     # -- byte rate: sample_rate * 2 values/sample * bytes/value ----------
     @staticmethod
@@ -323,6 +332,7 @@ class TcpSink(Sink):
                 if self._native.final_started:
                     self._started.set()
             finally:
+                self.fifo_stats = self._native.final_stats
                 self._native = None
                 if self._sock is not None:
                     self._sock.close()

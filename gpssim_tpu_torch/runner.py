@@ -620,9 +620,11 @@ def _run_batched(
     """Pipelined batched device path (see run_simulation docstring).
 
     The bounded in-flight window (2 windows) is the pipeline depth; the
-    asynchrony of CUDA streams provides the overlap."""
+    asynchrony of CUDA streams provides the overlap. Each stage of a window
+    is a :func:`trace.span` under the window's sequence number."""
     from .checkpoint import capture_state
     from .ops.args import collate_plans, pack_args
+    from .trace import span
 
     int_nco = cfg.carrier_mode is CarrierMode.INT_NCO
     kernel, wide, n_rows, bits = resolve_batch_kernel(cfg)
@@ -642,21 +644,24 @@ def _run_batched(
     # whatever a live edit does to the visible satellites.
     compact = not (cfg.realtime or cfg.interactive)
 
-    def window_args(plans: list, pad: bool) -> tuple:
+    def window_batch(plans: list, pad: bool):
         # Padding blocks (a short tail window up to W, so every launch
         # has the same shape) are synthesized and dropped. compact_multiple
         # =4 bounds the distinct channel extents as 30 s reallocations
         # drift the max-active count.
         if pad and len(plans) < W:
             plans = plans + [plans[-1]] * (W - len(plans))
-        batch = collate_plans(plans, int_nco=int_nco, compact=compact,
-                              compact_multiple=4)
-        return pack_args(batch.args)
+        return collate_plans(plans, int_nco=int_nco, compact=compact,
+                             compact_multiple=4)
+
+    def window_args(plans: list, pad: bool) -> tuple:
+        return pack_args(window_batch(plans, pad).args)
 
     stats = RunStats()
     supervisor = RealtimeSupervisor(cfg, sink, stats) if cfg.realtime else None
     it = sim.iter_plans()
-    pending: deque = deque()  # (in_flight, redispatch_fn, plans, snapshot)
+    # (in_flight, redispatch_fn, plans, snapshot, window number)
+    pending: deque = deque()
     # Nothing written yet: a checkpoint taken before the first window
     # drains must capture the pre-run state, not planner-ahead state.
     sim.consistent_snapshot = capture_state(sim)
@@ -665,31 +670,37 @@ def _run_batched(
         prepare_device(cfg, device, W)
     t0 = time.perf_counter()
 
-    def drain_one() -> None:
-        fut, redispatch, done_plans, snap = pending.popleft()
+    def drain_one() -> int:
+        """Write the oldest window; returns its number."""
+        fut, redispatch, done_plans, snap, k = pending.popleft()
         tf = time.perf_counter()
-        host, retried = fetch_batch(fut, redispatch)  # quantized
+        with span("wait", k):
+            host, retried = fetch_batch(fut, redispatch)  # quantized
         tc = time.perf_counter()
         stats.fetch_seconds += tc - tf
         stats.retries += retried
         blocks = list(host)
         if strict:
-            corrs = seq_corrections_window(done_plans, int_nco=int_nco)
-            blocks = [apply_corrections(blk, bits, *corr)
-                      for blk, corr in zip(blocks, corrs)]
+            with span("correct", k):
+                corrs = seq_corrections_window(done_plans, int_nco=int_nco)
+                blocks = [apply_corrections(blk, bits, *corr)
+                          for blk, corr in zip(blocks, corrs)]
         stats.correct_seconds += time.perf_counter() - tc
-        for blk, plan in zip(blocks, done_plans):
-            if cfg.noise_std_lsb > 0.0:
-                blk = apply_awgn(blk, bits, cfg.noise_std_lsb,
-                                 cfg.noise_seed, 0,
-                                 base_index + stats.blocks)
-            sink.write(blk)
-            stats.blocks += 1
-            stats.samples += plan.num_samples
+        with span("sink", k):
+            for blk, plan in zip(blocks, done_plans):
+                if cfg.noise_std_lsb > 0.0:
+                    blk = apply_awgn(blk, bits, cfg.noise_std_lsb,
+                                     cfg.noise_seed, 0,
+                                     base_index + stats.blocks)
+                sink.write(blk)
+                stats.blocks += 1
+                stats.samples += plan.num_samples
         stats.wall_seconds = time.perf_counter() - t0
         sim.consistent_snapshot = snap
         if on_block is not None:
-            on_block(stats, sim, done_plans[-1])
+            with span("hook", k):
+                on_block(stats, sim, done_plans[-1])
+        return k
 
     def fail_over() -> bool:
         """The device path cannot hold 1x: write the in-flight windows'
@@ -723,32 +734,40 @@ def _run_batched(
             after_block, supervisor, stats, probe, W)
 
     try:
-        while True:
+        for k in itertools.count():
             ts = time.perf_counter()
-            plans = list(itertools.islice(it, W))
+            with span("plan", k):
+                plans = list(itertools.islice(it, W))
             tp = time.perf_counter()
             stats.plan_seconds += tp - ts
             if plans:
-                packed, spec = window_args(plans, pad=any_full)
+                with span("collate", k):
+                    batch = window_batch(plans, pad=any_full)
+                with span("pack", k):
+                    packed, spec = pack_args(batch.args)
                 any_full = any_full or len(plans) == W
 
                 def redispatch(p=packed, s=spec):
                     return dispatch(p, s)
 
+                with span("launch", k):
+                    fut = redispatch()
                 # Snapshot NOW: sim state currently matches "all planned
                 # blocks done". By the time this window drains, the planner
                 # has run ahead — hooks must see the state matching the
                 # blocks actually written, or a checkpoint would skip the
                 # in-flight window on resume.
-                pending.append(
-                    (redispatch(), redispatch, plans, capture_state(sim))
-                )
+                with span("snapshot", k):
+                    snap = capture_state(sim)
+                pending.append((fut, redispatch, plans, snap, k))
                 stats.synth_seconds += time.perf_counter() - tp
             if (not plans and pending) or len(pending) >= 2:
-                drain_one()
+                drained = drain_one()
                 if cfg.realtime:
-                    pace(stats.blocks, t0, cfg.fifo_depth)
-                    if supervisor.check(t0) == "failover":
+                    with span("pace", drained):
+                        pace(stats.blocks, t0, cfg.fifo_depth)
+                        verdict = supervisor.check(t0)
+                    if verdict == "failover":
                         if not fail_over():
                             break
                         # Failback: every plan handed out is written, so
@@ -828,7 +847,7 @@ def _drain_pending_native(
     write_block = _make_native_writer(cfg, sink, stats, t0, base_index,
                                       t_act)
     while pending:
-        _fut, _redispatch, done_plans, snap = pending.popleft()
+        _fut, _redispatch, done_plans, snap, _k = pending.popleft()
         for plan in done_plans:
             write_block(plan)
         sim.consistent_snapshot = snap
