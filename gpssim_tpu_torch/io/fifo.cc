@@ -8,7 +8,15 @@
 // 22-77), exposed through a plain C ABI for ctypes (io/native.py). Each
 // FIFO also counts, in enum Stat's order, what the benchmark's sink
 // metrics read: the producer's wait for a free buffer, its copy into the
-// ring, and the queued depth at each dequeue.
+// ring, the queued depth at each dequeue, and the blocks lent to it.
+//
+// A block is either copied into a ring buffer (put) or lent (lend): the
+// queue entry then points at the caller's memory, and the drain writes
+// from it. A lent block still takes a ring slot, so the depth, the
+// backpressure and the start barrier are those of a copied one. The caller
+// keeps a lent block alive, unchanged, until kLentDone counts it (the
+// drain is FIFO, so a count says which) or until the drain thread is
+// joined.
 //
 // Built by io/native.py with g++ at first use, into build/native/ under a
 // name that hashes this file.
@@ -43,7 +51,20 @@ enum Stat {
   kCopyNs,         // ns the producer spent copying into the ring
   kDepthSum,       // queued blocks, the taken one included, summed at each
   kDequeued,       //   dequeue; and the blocks dequeued
+  kLent,           // blocks queued without a copy (lend)
+  kLentDone,       // lent blocks the drain has finished with
   kStatCount
+};
+
+// One queued entry: the ring slot it holds, the bytes to write (the slot
+// itself, or the caller's memory for a lent block), and whether the drain
+// counts kLentDone once it has written them (the last part of a lent
+// block).
+struct Entry {
+  uint8_t* slot;
+  const uint8_t* data;
+  long nbytes;
+  bool lent_last;
 };
 
 // ---------------------------------------------------------------------------
@@ -60,8 +81,8 @@ struct Fifo {
 
   long block_bytes;
   std::vector<std::vector<uint8_t>> storage;
-  std::deque<uint8_t*> freelist;           // fifo.c freelist
-  std::deque<std::pair<uint8_t*, long>> q; // queued (buffer, payload bytes)
+  std::deque<uint8_t*> freelist;  // fifo.c freelist
+  std::deque<Entry> q;            // queued entries
   std::mutex mu;
   std::condition_variable not_empty, not_full, full_once;
   bool halted = false;
@@ -87,10 +108,10 @@ struct Fifo {
     return b;
   }
 
-  bool enqueue(uint8_t* buf, long nbytes) {
+  bool enqueue(const Entry& e) {
     std::unique_lock<std::mutex> lk(mu);
     if (halted) return false;
-    q.emplace_back(buf, nbytes);
+    q.push_back(e);
     if (freelist.empty()) {
       filled_once = true;
       full_once.notify_all();
@@ -109,29 +130,49 @@ struct Fifo {
       long long t0 = now_ns();
       std::memcpy(buf, data, static_cast<size_t>(n));
       stat[kCopyNs] += now_ns() - t0;
-      if (!enqueue(buf, n)) return false;
+      if (!enqueue({buf, buf, n, false})) return false;
       data += n;
       nbytes -= n;
     }
     return true;
   }
 
-  // Consumer: blocking dequeue; nullptr on halt-and-drained.
-  uint8_t* dequeue(long* nbytes) {
-    std::unique_lock<std::mutex> lk(mu);
-    while (q.empty() && !halted) not_empty.wait(lk);
-    if (q.empty()) return nullptr;
-    stat[kDepthSum] += static_cast<long long>(q.size());
-    ++stat[kDequeued];
-    auto [buf, n] = q.front();
-    q.pop_front();
-    if (nbytes) *nbytes = n;
-    return buf;
+  // Producer: queue the caller's memory itself, one ring slot for each
+  // block_bytes of it, as put() would have copied it. No copy.
+  bool lend(const uint8_t* data, long nbytes) {
+    ++stat[kLent];
+    if (nbytes <= 0) {
+      ++stat[kLentDone];
+      return true;
+    }
+    while (nbytes > 0) {
+      uint8_t* slot = acquire();
+      if (!slot) return false;
+      long n = nbytes < block_bytes ? nbytes : block_bytes;
+      if (!enqueue({slot, data, n, n == nbytes})) return false;
+      data += n;
+      nbytes -= n;
+    }
+    return true;
   }
 
-  void release(uint8_t* buf) {
+  // Consumer: blocking dequeue; false on halt-and-drained.
+  bool dequeue(Entry* out) {
     std::unique_lock<std::mutex> lk(mu);
-    freelist.push_back(buf);
+    while (q.empty() && !halted) not_empty.wait(lk);
+    if (q.empty()) return false;
+    stat[kDepthSum] += static_cast<long long>(q.size());
+    ++stat[kDequeued];
+    *out = q.front();
+    q.pop_front();
+    return true;
+  }
+
+  // Consumer: the drain has finished with the entry's bytes.
+  void release(const Entry& e) {
+    if (e.lent_last) ++stat[kLentDone];
+    std::unique_lock<std::mutex> lk(mu);
+    freelist.push_back(e.slot);
     not_full.notify_one();
   }
 
@@ -189,18 +230,24 @@ struct Writer {
 
   void drain() {
     for (;;) {
-      long n = 0;
-      uint8_t* buf = fifo.dequeue(&n);
-      if (!buf) return;  // halted and drained
-      size_t w = std::fwrite(buf, 1, static_cast<size_t>(n), fp);
-      if (w != static_cast<size_t>(n)) io_error = true;
+      Entry e;
+      if (!fifo.dequeue(&e)) return;  // halted and drained
+      size_t n = static_cast<size_t>(e.nbytes);
+      size_t w = std::fwrite(e.data, 1, n, fp);
+      if (w != n) io_error = true;
       bytes_written += static_cast<long long>(w);
-      fifo.release(buf);
+      fifo.release(e);
     }
   }
 
   bool write(const uint8_t* data, long nbytes) {
     return fifo.put(data, nbytes) && !io_error;
+  }
+
+  // The lent blocks the drain has finished with, or -1 on failure.
+  long long lend(const uint8_t* data, long nbytes) {
+    if (!fifo.lend(data, nbytes) || io_error) return -1;
+    return fifo.stat[kLentDone].load();
   }
 
   // Flush and stop the drain thread, then close the file; idempotent (a
@@ -281,10 +328,10 @@ struct Streamer {
         std::this_thread::sleep_until(due);
         if (fifo.empty_and_live()) ++underruns;
       }
-      long n = 0;
-      uint8_t* buf = fifo.dequeue(&n);
-      if (!buf) return;  // halted and drained
-      const uint8_t* p = buf;
+      Entry e;
+      if (!fifo.dequeue(&e)) return;  // halted and drained
+      const uint8_t* p = e.data;
+      long n = e.nbytes;
       while (n > 0 && !io_error) {
         if (abort_io) {  // finish() gave up on a stalled peer
           io_error = true;
@@ -307,7 +354,7 @@ struct Streamer {
         n -= static_cast<long>(w);
         bytes_sent += static_cast<long long>(w);
       }
-      fifo.release(buf);
+      fifo.release(e);
       if (io_error) {
         // Nobody is reading: halt so the producer unblocks with an error
         // instead of deadlocking on acquire.
@@ -319,6 +366,12 @@ struct Streamer {
 
   bool write(const uint8_t* data, long nbytes) {
     return fifo.put(data, nbytes) && !io_error;
+  }
+
+  // The lent blocks the drain has finished with, or -1 on failure.
+  long long lend(const uint8_t* data, long nbytes) {
+    if (!fifo.lend(data, nbytes) || io_error) return -1;
+    return fifo.stat[kLentDone].load();
   }
 
   // Halt and flush (the drain sends queued blocks at the paced rate);
@@ -361,6 +414,13 @@ int gwriter_write(void* w, const void* data, long nbytes) {
   return static_cast<Writer*>(w)->write(static_cast<const uint8_t*>(data),
                                         nbytes);
 }
+// Queue the caller's block without a copy; the caller keeps it alive and
+// unchanged until the returned count of finished lent blocks includes it,
+// or until gwriter_finish. Returns that count, or -1 on failure.
+long long gwriter_lend(void* w, const void* data, long nbytes) {
+  return static_cast<Writer*>(w)->lend(static_cast<const uint8_t*>(data),
+                                       nbytes);
+}
 int gwriter_depth_used(void* w) {
   return static_cast<Writer*>(w)->fifo.depth_used();
 }
@@ -390,6 +450,12 @@ void* gstream_open(int fd, int nbuf, long block_bytes, double bytes_per_sec,
 int gstream_write(void* s, const void* data, long nbytes) {
   return static_cast<Streamer*>(s)->write(static_cast<const uint8_t*>(data),
                                           nbytes);
+}
+// As gwriter_lend; the block is kept until the count includes it or until
+// gstream_finish.
+long long gstream_lend(void* s, const void* data, long nbytes) {
+  return static_cast<Streamer*>(s)->lend(static_cast<const uint8_t*>(data),
+                                         nbytes);
 }
 int gstream_depth_used(void* s) {
   return static_cast<Streamer*>(s)->fifo.depth_used();

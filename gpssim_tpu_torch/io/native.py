@@ -4,15 +4,17 @@ Two libraries. The shared host runtime (native/gpssim_native.cc, built by
 tools/build_native.sh) gives the sequential engine (``ops/synth_seq``) and
 the vectorized int16→int8 quantizer. The port's own sink runtime
 (``io/fifo.cc``) gives the ring-FIFO-backed streaming IQ writer and the
-paced streamer, whose FIFOs count their producer's waits and copies and
-their depth; it is built on demand with g++ into ``build/native/`` under a
-name that hashes its source, so a library built from an older source never
-loads. ``available()`` reports whether the sink runtime can be used, so
-callers fall back to the pure-Python sink gracefully.
+paced streamer, whose FIFOs count their producer's waits and copies,
+their depth and the blocks lent to them; it is built on demand with g++
+into ``build/native/`` under a name that hashes its source, so a library
+built from an older source never loads. ``available()`` reports whether
+the sink runtime can be used, so callers fall back to the pure-Python sink
+gracefully.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -35,7 +37,8 @@ _FIFO_DIR = os.path.join(_ROOT, "build", "native")
 
 #: the FIFO counters of ``gwriter_stats`` / ``gstream_stats``, in the order
 #: of ``enum Stat`` in io/fifo.cc
-FIFO_STATS = ("acquire_wait_ns", "copy_ns", "depth_sum", "dequeued")
+FIFO_STATS = ("acquire_wait_ns", "copy_ns", "depth_sum", "dequeued",
+              "lent", "lent_done")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -115,6 +118,9 @@ def _load_fifo():
         lib.gwriter_write.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
         ]
+        lend = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
+        lib.gwriter_lend.restype = ctypes.c_longlong
+        lib.gwriter_lend.argtypes = lend
         lib.gwriter_depth_used.restype = ctypes.c_int
         lib.gwriter_depth_used.argtypes = handle
         lib.gwriter_bytes_written.restype = ctypes.c_longlong
@@ -134,6 +140,8 @@ def _load_fifo():
         lib.gstream_write.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
         ]
+        lib.gstream_lend.restype = ctypes.c_longlong
+        lib.gstream_lend.argtypes = lend
         lib.gstream_depth_used.restype = ctypes.c_int
         lib.gstream_depth_used.argtypes = handle
         lib.gstream_bytes_sent.restype = ctypes.c_longlong
@@ -171,6 +179,49 @@ def _fifo_stats(fn, handle, **extra) -> dict:
     return {**dict(zip(FIFO_STATS, out)), **extra}
 
 
+class _Lender:
+    """The blocks lent to a native FIFO, held until its drain is done.
+
+    A block is lent, queued by pointer with no copy, if it is a
+    C-contiguous ndarray whose ``flags.writeable`` is false: its caller
+    has given it up. Any other block is copied into the ring. A lent block
+    is held here until the count of lent blocks the drain has finished
+    with, which each lend returns, includes it (the drain is FIFO), or
+    until the drain thread has been joined (:meth:`joined`)."""
+
+    def __init__(self, copy_fn, lend_fn, failure: str):
+        self._copy = copy_fn
+        self._lend = lend_fn
+        self._failure = failure
+        self._held: collections.deque = collections.deque()
+        self._released = 0
+
+    def write(self, h, block) -> None:
+        if (isinstance(block, np.ndarray) and block.flags.c_contiguous
+                and not block.flags.writeable):
+            # held before the call: a lend that fails part-way may have
+            # queued some of the block
+            self._held.append(block)
+            done = self._lend(h, block.ctypes.data, block.nbytes)
+            if done < 0:
+                raise OSError(self._failure)
+            while self._released < done:
+                self._held.popleft()
+                self._released += 1
+            return
+        buf = np.ascontiguousarray(block)
+        if not self._copy(h, buf.ctypes.data_as(ctypes.c_void_p),
+                          buf.nbytes):
+            raise OSError(self._failure)
+
+    def joined(self) -> None:
+        """The drain thread is joined: no lent block is read any more."""
+        self._held.clear()
+
+    def __len__(self) -> int:
+        return len(self._held)
+
+
 def quantize_16to8(iq16: np.ndarray) -> np.ndarray:
     """int16 accumulators → int8 via arithmetic >>4 (gps.c:2841-2845)."""
     lib = _load()
@@ -189,9 +240,11 @@ def quantize_16to8(iq16: np.ndarray) -> np.ndarray:
 class NativeIqWriter:
     """Streaming file writer over the C++ ring FIFO + drain thread.
 
-    write() copies into preallocated native buffers and blocks only when
-    the ring is full — the pipeline's real-time backpressure — while disk
-    I/O runs on the native thread (reference sdr_iqfile.c:22-77)."""
+    write() lends a read-only contiguous block to the FIFO and copies any
+    other into preallocated native buffers (:class:`_Lender`); it blocks
+    only when the ring is full — the pipeline's real-time backpressure —
+    while disk I/O runs on the native thread (reference
+    sdr_iqfile.c:22-77)."""
 
     def __init__(self, path: str, fifo_depth: int = 8,
                  block_bytes: int = 1_200_000):
@@ -199,6 +252,8 @@ class NativeIqWriter:
         if lib is None:
             raise RuntimeError(f"native runtime unavailable: {_fifo_error}")
         self._lib = lib
+        self._lender = _Lender(lib.gwriter_write, lib.gwriter_lend,
+                               "native writer failed (I/O error or halted)")
         self._h = lib.gwriter_open(
             path.encode(), int(fifo_depth), int(block_bytes)
         )
@@ -210,12 +265,7 @@ class NativeIqWriter:
     final_stats: dict | None = None
 
     def write(self, block: np.ndarray) -> None:
-        buf = np.ascontiguousarray(block)
-        ok = self._lib.gwriter_write(
-            self._h, buf.ctypes.data_as(ctypes.c_void_p), buf.nbytes
-        )
-        if not ok:
-            raise OSError("native writer failed (I/O error or halted)")
+        self._lender.write(self._h, block)
 
     @property
     def depth_used(self) -> int:
@@ -229,6 +279,7 @@ class NativeIqWriter:
         if self._h:
             # Flush first, so the counters are final.
             rc = self._lib.gwriter_finish(self._h)
+            self._lender.joined()
             self.final_stats = _fifo_stats(
                 self._lib.gwriter_stats, self._h,
                 bytes=self._lib.gwriter_bytes_written(self._h))
@@ -238,6 +289,11 @@ class NativeIqWriter:
             if rc != 0:
                 raise OSError(f"native writer close failed (rc={rc})")
         return 0
+
+    def __del__(self):
+        # Never drop a lent block that the drain thread may still read.
+        if getattr(self, "_h", None) and len(self._lender):
+            self._lib.gwriter_finish(self._h)
 
 
 class NativeStreamer:
@@ -256,6 +312,9 @@ class NativeStreamer:
         if lib is None:
             raise RuntimeError(f"native runtime unavailable: {_fifo_error}")
         self._lib = lib
+        self._lender = _Lender(
+            lib.gstream_write, lib.gstream_lend,
+            "native streamer failed (peer closed or halted)")
         self._h = lib.gstream_open(
             int(fd), int(fifo_depth), int(block_bytes),
             float(bytes_per_sec), float(start_timeout_s),
@@ -268,12 +327,7 @@ class NativeStreamer:
     final_stats: dict | None = None
 
     def write(self, block: np.ndarray) -> None:
-        buf = np.ascontiguousarray(block)
-        ok = self._lib.gstream_write(
-            self._h, buf.ctypes.data_as(ctypes.c_void_p), buf.nbytes
-        )
-        if not ok:
-            raise OSError("native streamer failed (peer closed or halted)")
+        self._lender.write(self._h, block)
 
     @property
     def depth_used(self) -> int:
@@ -305,6 +359,7 @@ class NativeStreamer:
             # stalled peer is abandoned past the deadline), snapshot the
             # final stats, then free the native handle.
             rc = self._lib.gstream_finish(self._h, float(flush_timeout_s))
+            self._lender.joined()
             self.final_bytes_sent = self._lib.gstream_bytes_sent(self._h)
             self.final_underruns = self._lib.gstream_underruns(self._h)
             self.final_started = bool(self._lib.gstream_started(self._h))
@@ -315,3 +370,8 @@ class NativeStreamer:
             if rc != 0:
                 raise OSError(f"native streamer close failed (rc={rc})")
         return 0
+
+    def __del__(self):
+        # Never drop a lent block that the drain thread may still read.
+        if getattr(self, "_h", None) and len(self._lender):
+            self._lib.gstream_finish(self._h, 10.0)

@@ -29,6 +29,15 @@ class Sink:
         pass
 
     def write(self, block: np.ndarray) -> None:
+        """Hand one block to the sink.
+
+        A C-contiguous ndarray whose ``flags.writeable`` is false is lent
+        to a native FIFO (``IqFileSink``, ``TcpSink``): the FIFO queues it
+        by pointer and its drain thread writes from it, so the caller must
+        not change its memory through any other view. The sink holds a
+        reference to it until the drain is done with it. A native FIFO
+        copies any other block before ``write`` returns; the Python FIFO
+        queues every block by reference."""
         raise NotImplementedError
 
     def close(self) -> None:

@@ -603,15 +603,22 @@ def fetch_batch(fut: InFlight, redispatch) -> tuple[np.ndarray, bool]:
     Out of memory re-raises at once — a re-run would fail the same way.
     Any other device error re-dispatches the window once, to the same
     kernel: every block is a pure function of its plan. Returns
-    (host_array, retried)."""
+    (host_array, retried).
+
+    The array is read-only, so a native sink lends its rows instead of
+    copying them (``Sink.write``): every dispatch (``make_packed_kernel``
+    on the card and on the CPU, ``parallel.shard``'s mesh) allocates the
+    window's host output anew, and no one writes into it again."""
     import torch
 
     try:
-        return fut.result(), False
+        host, retried = fut.result(), False
     except torch.cuda.OutOfMemoryError:
         raise
     except RuntimeError:
-        return redispatch().result(), True
+        host, retried = redispatch().result(), True
+    host.flags.writeable = False
+    return host, retried
 
 
 def _run_batched(

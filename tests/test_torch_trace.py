@@ -308,11 +308,13 @@ def test_stale_library_is_rebuilt(edit, rebuilt, tmp_path, monkeypatch):
 def test_stats_bound_in_the_library():
     lib = native._load_fifo()
     assert lib is not None, native.load_error()
-    for name in ("gwriter_stats", "gwriter_finish", "gstream_stats"):
+    bound = ("gwriter_stats", "gwriter_finish", "gstream_stats",
+             "gwriter_lend", "gstream_lend")
+    for name in bound:
         assert hasattr(lib, name), name
-    assert len(native.FIFO_STATS) == 4
+    assert len(native.FIFO_STATS) == 6
     # the shared host runtime, which the JAX package loads too, is as it was
     shared = native._load()
     assert shared is not None
-    for name in ("gwriter_stats", "gwriter_finish", "gstream_stats"):
+    for name in bound:
         assert not hasattr(shared, name), name
