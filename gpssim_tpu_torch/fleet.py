@@ -35,7 +35,7 @@ from .config import CarrierMode, LocationConfig, SimConfig, SynthBackend
 from .io.sinks import Sink, make_configured_sink
 from .runner import (
     DEVICE_BACKENDS, DeviceProbe, RealtimeSupervisor, RunStats,
-    _make_native_writer, fetch_batch, make_packed_kernel,
+    _make_native_writer, book_corrections, fetch_batch, make_packed_kernel,
     native_until_failback, pace, prepare_device, resolve_batch_kernel,
     resolve_device, strict_parity_enabled,
 )
@@ -288,7 +288,7 @@ def run_fleet(
         )
     strict = strict_parity_enabled(cfg0)
     if strict:
-        from .ops.synth_seq import apply_corrections, seq_corrections_window
+        from .ops.synth_seq import correct_window
     if any(c.noise_std_lsb > 0.0 for c in cfgs):
         from .noise import apply_awgn
 
@@ -438,10 +438,10 @@ def run_fleet(
                 blocks = list(host[:len(done)])
                 if strict:
                     with span("correct", done_k):
-                        corrs = seq_corrections_window(
-                            [p for _, p in done], int_nco=int_nco)
-                        blocks = [apply_corrections(blk, bits, *corr)
-                                  for blk, corr in zip(blocks, corrs)]
+                        blocks, cands, patched = correct_window(
+                            blocks, [p for _, p in done], bits, int_nco)
+                    for (member, _), c, n in zip(done, cands, patched):
+                        book_corrections(stats[member], c, n)
                 stats[0].correct_seconds += time.perf_counter() - tc
                 with span("sink", done_k):
                     for blk, (member, plan) in zip(blocks, done):

@@ -1,15 +1,18 @@
 """ctypes bindings for the port's native host code.
 
-Two libraries. The shared host runtime (native/gpssim_native.cc, built by
-tools/build_native.sh) gives the sequential engine (``ops/synth_seq``) and
-the vectorized int16→int8 quantizer. The port's own sink runtime
-(``io/fifo.cc``) gives the ring-FIFO-backed streaming IQ writer and the
-paced streamer, whose FIFOs count their producer's waits and copies,
-their depth and the blocks lent to them; it is built on demand with g++
-into ``build/native/`` under a name that hashes its source, so a library
-built from an older source never loads. ``available()`` reports whether
-the sink runtime can be used, so callers fall back to the pure-Python sink
-gracefully.
+Three libraries. The shared host runtime (native/gpssim_native.cc, built
+by tools/build_native.sh) gives the full sequential synthesizer of the
+native backend (``ops/synth_seq.synth_block_seq_native``) and the
+vectorized int16→int8 quantizer. The port's own sequential engine
+(``ops/seq.cc``) gives the strict-parity corrections and the planner's
+carrier chain. The port's own sink runtime (``io/fifo.cc``) gives the
+ring-FIFO-backed streaming IQ writer and the paced streamer, whose FIFOs
+count their producer's waits and copies, their depth and the blocks lent
+to them. The port's two are built on demand with g++ into
+``build/native/`` under a name that hashes the source and the flags, so a
+library built from an older source never loads. ``available()`` reports
+whether the sink runtime can be used, so callers fall back to the
+pure-Python sink gracefully.
 """
 
 from __future__ import annotations
@@ -34,6 +37,14 @@ _BUILD = os.path.join(_ROOT, "tools", "build_native.sh")
 _FIFO_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "fifo.cc")
 _FIFO_DIR = os.path.join(_ROOT, "build", "native")
+_SEQ_SRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "ops", "seq.cc")
+_FIFO_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-pthread")
+# -ffp-contract=off: the sequential replay must perform exactly the
+# IEEE-754 mul+add sequence of the reference C (no FMA contraction, which
+# would change the rounding).
+_SEQ_FLAGS = ("-std=c++17", "-O3", "-ffp-contract=off", "-shared", "-fPIC",
+              "-pthread")
 
 #: the FIFO counters of ``gwriter_stats`` / ``gstream_stats``, in the order
 #: of ``enum Stat`` in io/fifo.cc
@@ -45,6 +56,8 @@ _lib_lock = threading.Lock()
 _load_error: str | None = None
 _fifo = None
 _fifo_error: str | None = None
+_seq = None
+_seq_error: str | None = None
 
 
 def _load():
@@ -72,26 +85,48 @@ def _load():
         return _lib
 
 
+def _lib_path(src: str, stem: str, flags: tuple) -> str:
+    """Where the library built from ``src`` with ``flags`` goes: its name
+    hashes both."""
+    with open(src, "rb") as fp:
+        h = hashlib.sha256(fp.read())
+    h.update(" ".join(flags).encode())
+    return os.path.join(_FIFO_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
+
+
+def _build(src: str, stem: str, flags: tuple) -> str:
+    out = _lib_path(src, stem, flags)
+    if not os.path.exists(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"  # renamed over: never half-written
+        subprocess.run(["g++", *flags, "-o", tmp, src], check=True,
+                       capture_output=True, text=True)
+        os.replace(tmp, out)
+    return out
+
+
 def fifo_lib_path() -> str:
-    """Where the sink runtime built from ``io/fifo.cc`` goes: its name
-    hashes the source."""
-    with open(_FIFO_SRC, "rb") as fp:
-        digest = hashlib.sha256(fp.read()).hexdigest()[:16]
-    return os.path.join(_FIFO_DIR, f"libfifo-{digest}.so")
+    """Where the sink runtime built from ``io/fifo.cc`` goes."""
+    return _lib_path(_FIFO_SRC, "fifo", _FIFO_FLAGS)
 
 
 def _build_fifo() -> str:
-    out = fifo_lib_path()
-    if not os.path.exists(out):
-        os.makedirs(_FIFO_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"  # renamed over: never half-written
-        subprocess.run(
-            ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-pthread",
-             "-o", tmp, _FIFO_SRC],
-            check=True, capture_output=True, text=True,
-        )
-        os.replace(tmp, out)
-    return out
+    return _build(_FIFO_SRC, "fifo", _FIFO_FLAGS)
+
+
+def _load_seq():
+    """The port's sequential engine (``ops/seq.cc``), or None."""
+    global _seq, _seq_error
+    with _lib_lock:
+        if _seq is not None or _seq_error is not None:
+            return _seq
+        try:
+            _seq = ctypes.CDLL(_build(_SEQ_SRC, "seq", _SEQ_FLAGS))
+        except subprocess.CalledProcessError as e:
+            _seq_error = f"{e}: {e.stderr[-2000:]}"
+        except OSError as e:
+            _seq_error = str(e)
+        return _seq
 
 
 def _load_fifo():

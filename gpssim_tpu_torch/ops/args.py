@@ -79,6 +79,32 @@ def _lut_mags() -> np.ndarray:
 _LUT_MAGS = _lut_mags()
 
 
+def _fold_exact(g: float) -> tuple[int, int]:
+    """A Q44 gain G, split into its high and low 22 bits, whose device
+    product floor(T * G / 2^44) is the reference C's float64 trunc(T*g)
+    for every LUT magnitude T (gps.c:2781-2782).
+
+    Each T admits the G in [t * 2^44 / T, (t + 1) * 2^44 / T) with
+    t = trunc(fl(T*g)); the nearest G to g * 2^44 in the intersection is
+    taken. The intersection is empty only where two magnitudes round
+    their products to opposite sides of integers: no single gain then
+    gives the reference's bytes, and this raises."""
+    lo, hi = 0, 1 << 62
+    for T in _LUT_MAGS:
+        if T == 0.0:
+            continue
+        t, m = int(np.trunc(T * g)), int(T)
+        lo = max(lo, -((-t << 44) // m))  # ceil(t * 2^44 / T)
+        hi = min(hi, -((-(t + 1) << 44) // m) - 1)
+    if lo > hi:
+        raise ValueError(
+            f"no Q44 gain gives trunc(T*g) for every carrier-table "
+            f"magnitude T at g = {g!r}"
+        )
+    G = min(max(int(np.floor(g * float(1 << 44))), lo), hi)
+    return G >> 22, G & ((1 << 22) - 1)
+
+
 def args_from_arrays(
     active: np.ndarray,
     code_phase: np.ndarray,
@@ -198,39 +224,32 @@ def args_from_arrays(
     g44 = np.floor(g * float(1 << 44))
     ga = np.floor(g * float(1 << 22)).astype(np.int32)  # high 22+ bits
     gb = (g44 - ga.astype(np.float64) * float(1 << 22)).astype(np.int32)
-    # The Q44 truncation drops gain bits below 2^-44; trunc(T*gQ44) could
-    # in principle differ from the f64 trunc(T*g) when T*g sits within
-    # ~2^-35 of an integer. Screen that — the LUT magnitude set has only
-    # 129 distinct values, and a hit (never observed; ~1e-11 odds per
-    # block) raises instead of silently corrupting device output.
-    #
-    # Two-stage screen: the split evaluates floor(P - eps_drop) where
-    # eps_drop = (r + delta*T)/2^44 < 2^-21 is the dropped low product
-    # (split approximates T*g from BELOW), so trunc can only disagree
-    # when an integer sits inside (P - eps_drop, P] — i.e. when P lies
-    # within 2^-21 AT OR ABOVE an integer. A distance prescreen (2 array
-    # passes) stands in for the full int64 split evaluation, and the
-    # exact comparison runs only when something is flagged.
+    # The Q44 truncation drops gain bits below 2^-44, so the split computes
+    # floor(T * g44 / 2^44) <= trunc(T*g): one less where the product T*g
+    # sits a hair at or above an integer (within 2^-21). The LUT magnitude
+    # set has only 115 distinct values T; a distance prescreen (2 array
+    # passes) flags such products, and the exact comparison runs only when
+    # something is flagged. A (block, channel) whose split is not exact
+    # for every T gets another Q44 gain: see _fold_exact.
     mags = _LUT_MAGS[:, None]  # (M, 1)
     gf = g[..., None, :]  # (..., 1, C)
-    prod = mags * gf  # (..., M, C); exact to 0.5 ulp <= 2^-44*|P|
+    prod = mags * gf  # (..., M, C)
     # Inactive slots carry g == 0: every product is exactly the integer
     # 0 and the split is trivially exact — exclude them or the prescreen
     # would flag every batch.
     flagged = (prod - np.floor(prod) < 2.0**-20) & (gf > 0.0)
     if np.any(flagged):
-        exact = np.trunc(prod)
+        exact = np.trunc(prod).astype(np.int64)
         q44 = (
             ga.astype(np.int64)[..., None, :] * mags.astype(np.int64)
             + ((gb.astype(np.int64)[..., None, :] * mags.astype(np.int64))
                >> 22)
         ) >> 22
-        if not np.array_equal(exact.astype(np.int64), q44):
-            raise ValueError(
-                "Q44 gain split is not truncation-exact for this gain "
-                "value — a LUT product sits on an integer boundary closer "
-                "than 2^-44"
-            )
+        bad = np.any(exact != q44, axis=-2)  # (..., C)
+        if np.any(bad):
+            ga, gb = ga.copy(), gb.copy()
+            for at in zip(*np.nonzero(bad)):
+                ga[at], gb[at] = _fold_exact(float(g[at]))
 
     # Bit-packed C/A chips from the cached per-PRN table (wrap-extended);
     # packing 1023 chips per block would dominate collation otherwise.

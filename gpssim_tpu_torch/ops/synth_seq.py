@@ -9,28 +9,31 @@ random walk (≤ N half-ulps ≈ 1e-7 chips per block) — invisible except when
 a sample's phase lands inside that band around a chip/LUT quantization
 boundary, where the two semantics pick different indices.
 
-The native engine (native/gpssim_native.cc) replays the sequential
-recurrences exactly and provides:
+The port's sequential engine (ops/seq.cc, built by io/native.py) replays
+the sequential recurrences exactly and provides:
 
 * :func:`carrier_chain` — block-boundary carrier phases with sequential
   semantics, used by the scenario planner so block-start state matches the
   reference bit-for-bit;
-* :func:`seq_corrections` / :func:`apply_corrections` — the sparse set of
-  samples where sequential and closed-form outputs differ, with the
-  sequential int16 accumulators, so closed-form output from *any* backend
-  (NumPy, XLA, Pallas — they are mutually bit-exact) is patched into the
-  sequential-exact stream.  O(hits), not O(samples): boundary candidates
+* :func:`seq_corrections` / :func:`seq_corrections_window` /
+  :func:`correct_window` — the sparse set of samples where the sequential
+  output differs from a closed form, with the sequential int16
+  accumulators, so a closed-form block is patched into the sequential-
+  exact stream.  The closed form is the one the caller's bytes hold:
+  ``fixed_point=True`` (the default) is the device kernels' fixed point
+  (Q46 code phase, Q53 carrier phase, ops/args.py), ``False`` the NumPy
+  backend's float64 form.  O(hits), not O(samples): boundary candidates
   are located analytically on the exact closed-form progression with a
   modular first-hit solver, and the sequential state fast-forwards
-  between candidates via the exact binade mantissa progression (~640
-  blocks/s on this host vs ~60 for the sample-major replay, which is
-  kept as ``_ref=True`` and cross-checked by the fuzz tests);
+  between candidates via the exact binade mantissa progression; the
+  sample-major screen is kept as ``_ref=True`` and cross-checked by the
+  tests;
 * :func:`synth_block_seq` — closed-form NumPy synth + patch: the strict
-  parity path used by the golden tests.
+  parity path of the NumPy backend.
 
-When the native library cannot be built, callers fall back to closed-form
-semantics (the round-1 contract: rare ≤ chip-amplitude deviations at
-16-bit, byte-identical at 8-bit on short runs).
+:func:`synth_block_seq_native`, the full sequential synthesizer of the
+native backend (and the yardstick of the tests), comes from the shared
+host runtime (native/gpssim_native.cc, tools/build_native.sh).
 """
 
 from __future__ import annotations
@@ -47,55 +50,79 @@ _SIN_F64 = np.ascontiguousarray(SIN_TABLE_512, dtype=np.float64)
 _COS_F64 = np.ascontiguousarray(COS_TABLE_512, dtype=np.float64)
 
 _configured = False
+_shared_configured = False
+
+#: the plan fields the engine reads, with their C types, in its order
+_FIELDS = (
+    ("code_phase", np.float64), ("f_code", np.float64),
+    ("carr_phase", np.float64), ("f_carr", np.float64),
+    ("carr_phase_i", np.uint32), ("carr_step_i", np.int32),
+    ("gain", np.float64), ("iword", np.int64), ("ibit", np.int64),
+    ("icode", np.int64), ("ca", np.int8), ("dwrd", np.uint32),
+)
 
 
 def _lib():
-    """The native library with the gseq_* symbols, or None."""
+    """The port's sequential engine (ops/seq.cc), or None."""
     global _configured
     from ..io import native as _native
 
-    lib = _native._load()
+    lib = _native._load_seq()
     if lib is None:
         return None
     if not _configured:
         c = ctypes
-        # argtypes mirror the C signatures exactly (native/gpssim_native.cc)
-        # — the scalar max_out sits BETWEEN pointer groups in
-        # gseq_diff_block, and nothing is left to ctypes' variadic
-        # default conversion.
+        # argtypes mirror the C signatures exactly (ops/seq.cc); nothing
+        # is left to ctypes' variadic default conversion.
         lib.gseq_carr_chain.restype = c.c_long
         lib.gseq_carr_chain.argtypes = [
             c.c_long, c.c_long, c.c_long, c.c_double,
             c.c_void_p, c.c_void_p, c.c_void_p,
         ]
-        for sym in (lib.gseq_diff_block, lib.gseq_diff_block_ref):
-            sym.restype = c.c_long
-            sym.argtypes = (
-                [c.c_long, c.c_long, c.c_double, c.c_int]
-                + [c.c_void_p] * 15  # active..dwrd, sin/cos LUTs
-                + [c.c_long]         # max_out
-                + [c.c_void_p] * 5   # out_idx/i/q, end_carr, end_carr_i
-                + [c.c_int]          # want_end
-            )
+        lib.gseq_diff_block.restype = c.c_long
+        lib.gseq_diff_block.argtypes = (
+            [c.c_long, c.c_long, c.c_double, c.c_int, c.c_int, c.c_int]
+            + [c.c_void_p] * 15  # active..dwrd, sin/cos LUTs
+            + [c.c_long]         # max_out
+            + [c.c_void_p] * 5   # out_idx/i/q, end_carr, end_carr_i
+            + [c.c_int]          # want_end
+            + [c.c_void_p]       # n_cand
+        )
+        lib.gseq_diff_window.restype = c.c_long
+        lib.gseq_diff_window.argtypes = (
+            [c.c_long, c.c_long, c.c_long, c.c_double, c.c_int, c.c_int]
+            + [c.c_void_p] * 15  # active..dwrd, sin/cos LUTs
+            + [c.c_long]         # max_out (per block)
+            + [c.c_void_p] * 5   # out_idx/i/q, out_n, out_cand
+        )
+        _configured = True
+    return lib
+
+
+def _shared():
+    """The shared host runtime with gseq_synth_block, or None."""
+    global _shared_configured
+    from ..io import native as _native
+
+    lib = _native._load()
+    if lib is None:
+        return None
+    if not _shared_configured:
+        c = ctypes
         lib.gseq_synth_block.restype = c.c_long
         lib.gseq_synth_block.argtypes = (
             [c.c_long, c.c_long, c.c_double, c.c_int, c.c_int]
             + [c.c_void_p] * 18      # active..dwrd, LUTs, out, end state
         )
-        if hasattr(lib, "gseq_diff_window"):
-            lib.gseq_diff_window.restype = c.c_long
-            lib.gseq_diff_window.argtypes = (
-                [c.c_long, c.c_long, c.c_long, c.c_double, c.c_int]
-                + [c.c_void_p] * 15  # active..dwrd, sin/cos LUTs
-                + [c.c_long]         # max_out (per block)
-                + [c.c_void_p] * 4   # out_idx/i/q, out_n
-            )
-        _configured = True
+        _shared_configured = True
     return lib
 
 
 def seq_available() -> bool:
-    return _lib() is not None
+    """Whether strict parity can run: the port's engine (the corrections,
+    the carrier chain) and the shared runtime's sequential synthesizer
+    (the native backend, the realtime failover) both load."""
+    return _lib() is not None and _shared() is not None
 
 
 def carrier_chain(
@@ -131,58 +158,49 @@ def carrier_chain(
 
 def seq_corrections(
     plan: BlockPlan, int_nco: bool = False, max_out: int = 4096,
-    _ref: bool = False, want_end: bool = False
+    _ref: bool = False, want_end: bool = False, fixed_point: bool = True,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Samples where sequential semantics differ from the closed form.
 
     Returns (idx, i16, q16, end_carr, end_carr_i): at sample ``idx[k]`` the
     sequential int16 accumulators are ``(i16[k], q16[k])``.  idx is empty
-    for almost every block.  With ``want_end`` the last two outputs are
-    the sequential block-end carrier phases (inactive slots pass
-    through); without it (the production default) the walk past the last
-    candidate — the ENTIRE block when there are no candidates — is
+    for almost every block.  ``fixed_point`` picks the closed form the
+    caller's bytes hold: the device kernels' fixed point (True) or the
+    NumPy backend's float64 form (False).  With ``want_end`` the last two
+    outputs are the sequential block-end carrier phases (inactive slots
+    pass through); without it (the production default) the walk past the
+    last candidate — the ENTIRE block when there are no candidates — is
     skipped, because the planner's carrier chain already owns
     block-boundary state, and end_carr/end_carr_i just pass the inputs
     through.
 
-    ``_ref=True`` runs the sample-major float-replay reference screen
-    instead of the binade-segment fast path — a test hook for the
-    cross-check in tests/test_synth_seq.py.
+    ``_ref=True`` runs the sample-major reference screen instead of the
+    binade-segment fast path — a test hook for the cross-check.
     """
     lib = _lib()
     if lib is None:
         raise RuntimeError("native sequential engine unavailable")
     C = plan.num_channels
     cv = ctypes.c_void_p
-
-    def p(a, dt):
-        return np.ascontiguousarray(a, dtype=dt)
-
-    active = p(plan.active, np.uint8)
-    args = [
-        p(plan.code_phase, np.float64), p(plan.f_code, np.float64),
-        p(plan.carr_phase, np.float64), p(plan.f_carr, np.float64),
-        p(plan.carr_phase_i, np.uint32), p(plan.carr_step_i, np.int32),
-        p(plan.gain, np.float64), p(plan.iword, np.int64),
-        p(plan.ibit, np.int64), p(plan.icode, np.int64),
-        p(plan.ca, np.int8), p(plan.dwrd, np.uint32),
-    ]
+    active = np.ascontiguousarray(plan.active, dtype=np.uint8)
+    args = [np.ascontiguousarray(getattr(plan, name), dtype=dt)
+            for name, dt in _FIELDS]
     out_idx = np.empty(max_out, dtype=np.int64)
     out_i = np.empty(max_out, dtype=np.int16)
     out_q = np.empty(max_out, dtype=np.int16)
     end_carr = np.empty(C, dtype=np.float64)
     end_carr_i = np.empty(C, dtype=np.uint32)
-    fn = lib.gseq_diff_block_ref if _ref else lib.gseq_diff_block
-    n = fn(
+    n_cand = ctypes.c_long(0)
+    n = lib.gseq_diff_block(
         C, int(plan.num_samples), float(plan.delt), int(int_nco),
-        active.ctypes.data_as(cv),
+        int(fixed_point), int(_ref), active.ctypes.data_as(cv),
         *[a.ctypes.data_as(cv) for a in args],
         _SIN_F64.ctypes.data_as(cv), _COS_F64.ctypes.data_as(cv),
         max_out,
         out_idx.ctypes.data_as(cv), out_i.ctypes.data_as(cv),
         out_q.ctypes.data_as(cv),
         end_carr.ctypes.data_as(cv), end_carr_i.ctypes.data_as(cv),
-        int(want_end),
+        int(want_end), ctypes.byref(n_cand),
     )
     if n == -1:
         raise ValueError(
@@ -194,27 +212,16 @@ def seq_corrections(
     return out_idx[:n], out_i[:n], out_q[:n], end_carr, end_carr_i
 
 
-def seq_corrections_window(
-    plans: list[BlockPlan], int_nco: bool = False, max_out: int = 512,
-) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """Corrections for a whole dispatch window in ONE native call.
-
-    Identical results to calling :func:`seq_corrections` per plan (the
-    native side runs the same gseq_diff_block per stacked block — fanned
-    over threads on multi-core hosts), but the per-block Python/ctypes
-    marshalling collapses to one vectorized stack per field, removing
-    the strict-parity pipeline's per-block constant cost (VERDICT r3
-    item 3).  Returns [(idx, i16, q16), ...] aligned with ``plans``.
-
-    A block overflowing ``max_out`` corrections (never observed — the
-    screen yields ~0/block) falls back to the per-plan path, which
-    raises its descriptive error.
-    """
+def _diff_window(plans: list[BlockPlan], int_nco: bool, max_out: int,
+                 fixed_point: bool) -> tuple[list, np.ndarray]:
+    """The corrections of a window in one native call, and the candidates
+    the screen evaluated in each block."""
     lib = _lib()
     if lib is None:
         raise RuntimeError("native sequential engine unavailable")
-    if not plans:
-        return []
+    B = len(plans)
+    if not B:
+        return [], np.zeros(0, dtype=np.int64)
     for p in plans[1:]:
         # The stacked native call replays every block with plans[0]'s
         # static facts — a heterogeneous window would be silently
@@ -225,11 +232,6 @@ def seq_corrections_window(
                 f"num_samples {p.num_samples} != {plans[0].num_samples} "
                 f"or delt {p.delt} != {plans[0].delt}"
             )
-    if not hasattr(lib, "gseq_diff_window"):  # stale .so on disk
-        return [
-            seq_corrections(p, int_nco=int_nco)[:3] for p in plans
-        ]
-    B = len(plans)
     C = plans[0].num_channels
     cv = ctypes.c_void_p
 
@@ -239,30 +241,27 @@ def seq_corrections_window(
         )
 
     active = stack("active", np.uint8)
-    args = [
-        stack("code_phase", np.float64), stack("f_code", np.float64),
-        stack("carr_phase", np.float64), stack("f_carr", np.float64),
-        stack("carr_phase_i", np.uint32), stack("carr_step_i", np.int32),
-        stack("gain", np.float64), stack("iword", np.int64),
-        stack("ibit", np.int64), stack("icode", np.int64),
-        stack("ca", np.int8), stack("dwrd", np.uint32),
-    ]
+    args = [stack(name, dt) for name, dt in _FIELDS]
     out_idx = np.empty(B * max_out, dtype=np.int64)
     out_i = np.empty(B * max_out, dtype=np.int16)
     out_q = np.empty(B * max_out, dtype=np.int16)
     out_n = np.empty(B, dtype=np.int64)
+    out_cand = np.empty(B, dtype=np.int64)
     rc = lib.gseq_diff_window(
         B, C, int(plans[0].num_samples), float(plans[0].delt),
-        int(int_nco), active.ctypes.data_as(cv),
+        int(int_nco), int(fixed_point), active.ctypes.data_as(cv),
         *[a.ctypes.data_as(cv) for a in args],
         _SIN_F64.ctypes.data_as(cv), _COS_F64.ctypes.data_as(cv),
         max_out,
         out_idx.ctypes.data_as(cv), out_i.ctypes.data_as(cv),
         out_q.ctypes.data_as(cv), out_n.ctypes.data_as(cv),
+        out_cand.ctypes.data_as(cv),
     )
     if rc == -2:
-        # per-plan path sizes its buffer larger and reports precisely
-        return [seq_corrections(p, int_nco=int_nco)[:3] for p in plans]
+        # the per-plan path sizes its buffer larger and reports precisely
+        out = [seq_corrections(p, int_nco=int_nco,
+                               fixed_point=fixed_point)[:3] for p in plans]
+        return out, out_cand
     if rc != 0:
         raise ValueError(
             "invalid block plan in window for sequential replay "
@@ -273,7 +272,41 @@ def seq_corrections_window(
         n = int(out_n[b])
         s = b * max_out
         out.append((out_idx[s:s + n], out_i[s:s + n], out_q[s:s + n]))
-    return out
+    return out, out_cand
+
+
+def seq_corrections_window(
+    plans: list[BlockPlan], int_nco: bool = False, max_out: int = 512,
+    fixed_point: bool = True,
+) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Corrections for a whole dispatch window in ONE native call.
+
+    Identical results to calling :func:`seq_corrections` per plan (the
+    native side runs the same screen per stacked block), but the
+    per-block Python/ctypes marshalling collapses to one vectorized stack
+    per field.  Returns
+    [(idx, i16, q16), ...] aligned with ``plans``.
+
+    A block overflowing ``max_out`` corrections (never observed) falls
+    back to the per-plan path, which raises its descriptive error.
+    """
+    return _diff_window(plans, int_nco, max_out, fixed_point)[0]
+
+
+def correct_window(blocks: list, plans: list[BlockPlan], bits: int,
+                   int_nco: bool = False) -> tuple[list, np.ndarray,
+                                                   np.ndarray]:
+    """Patch a window of the device kernels' blocks (``bits``-bit
+    interleaved I/Q, one per plan) into the sequential-exact stream.
+
+    Returns (blocks, candidates, patched): the blocks, a patched one a
+    writable copy and the others as given; the candidates the screen
+    evaluated in each block; and the samples patched in each."""
+    corrs, cands = _diff_window(plans, int_nco, 512, True)
+    out = [apply_corrections(blk, bits, *corr)
+           for blk, corr in zip(blocks, corrs)]
+    patched = np.array([len(corr[0]) for corr in corrs], dtype=np.int64)
+    return out, cands, patched
 
 
 def apply_corrections(
@@ -307,7 +340,8 @@ def synth_block_seq(plan: BlockPlan, int_nco: bool = False) -> np.ndarray:
     its per-sample float64 phase accumulation.  int16[2N] interleaved.
     """
     iq16 = synth_block_numpy(plan, int_nco=int_nco)
-    idx, i16, q16, _, _ = seq_corrections(plan, int_nco=int_nco)
+    idx, i16, q16, _, _ = seq_corrections(plan, int_nco=int_nco,
+                                          fixed_point=False)
     return apply_corrections(iq16, 16, idx, i16, q16)
 
 
@@ -319,7 +353,7 @@ def synth_block_seq_native(
     ~10x faster than the NumPy path, making hour-scale endurance goldens
     tractable on the host.  int16[2N] (bits=16) or int8[2N] (bits=8).
     """
-    lib = _lib()
+    lib = _shared()
     if lib is None:
         raise RuntimeError("native sequential engine unavailable")
     C = plan.num_channels

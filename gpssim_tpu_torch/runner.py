@@ -55,6 +55,12 @@ class RunStats:
     # applying the strict-parity corrections to it
     fetch_seconds: float = 0.0
     correct_seconds: float = 0.0
+    # strict parity: candidates the corrections' screen evaluated, samples
+    # patched, and blocks with a patch (the sink copies these instead of
+    # lending them)
+    correct_candidates: int = 0
+    correct_samples: int = 0
+    correct_blocks: int = 0
     retries: int = 0  # windows re-dispatched after a device error
     underruns: int = 0  # the sink's count at the end of the run (paced sinks)
     failovers: int = 0  # realtime backend failovers (RealtimeSupervisor)
@@ -597,6 +603,13 @@ def make_packed_kernel(kernel, n_rows: int, num_samples: int, bits: int,
     return dispatch
 
 
+def book_corrections(stats: RunStats, candidates, patched) -> None:
+    """Add a window's (or one block's) correction counts to ``stats``."""
+    stats.correct_candidates += int(np.sum(candidates))
+    stats.correct_samples += int(np.sum(patched))
+    stats.correct_blocks += int(np.count_nonzero(patched))
+
+
 def fetch_batch(fut: InFlight, redispatch) -> tuple[np.ndarray, bool]:
     """Wait for a window with the transient-failure retry policy.
 
@@ -641,7 +654,7 @@ def _run_batched(
     W = dispatch_window(cfg)
     strict = strict_parity_enabled(cfg)
     if strict:
-        from .ops.synth_seq import apply_corrections, seq_corrections_window
+        from .ops.synth_seq import correct_window
     base_index = sim.next_block_index  # noise keying (resume-stable)
     if cfg.noise_std_lsb > 0.0:
         from .noise import apply_awgn
@@ -689,9 +702,9 @@ def _run_batched(
         blocks = list(host)
         if strict:
             with span("correct", k):
-                corrs = seq_corrections_window(done_plans, int_nco=int_nco)
-                blocks = [apply_corrections(blk, bits, *corr)
-                          for blk, corr in zip(blocks, corrs)]
+                blocks, cands, patched = correct_window(
+                    blocks, done_plans, bits, int_nco)
+            book_corrections(stats, cands, patched)
         stats.correct_seconds += time.perf_counter() - tc
         with span("sink", k):
             for blk, plan in zip(blocks, done_plans):

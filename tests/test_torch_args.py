@@ -121,21 +121,30 @@ def test_chain_carrier_phases_and_ca_table_equal_jax():
 
 def test_q44_gain_screen_catches_boundary_gain(fixtures_dir):
     """A gain placing a LUT product within 2^-44 of an integer (here
-    250*g = 100+1e-13, which Q44 truncates to 99) must raise, as in the
-    JAX package, instead of silently corrupting the kernel's output."""
+    250*g = 100+1e-13, which Q44 truncates to 99) is caught by the screen:
+    the JAX package raises, and the port folds that channel's gain so that
+    the kernel's product is the float64 trunc(T*g) for every magnitude T
+    (tests/test_torch_strict_gain.py holds the bytes)."""
     cfg = SimConfig(nav_file=f"{fixtures_dir}/brdc_test.22n",
                     duration_sec=0.3, almanac_enable=False)
     plan = next(Simulation(cfg).iter_plans())
-    targs.plan_to_args(plan)  # physical gains pass
+    good = targs.plan_to_args(plan)  # physical gains pass unfolded
+    for k in ("gain_a", "gain_b"):
+        assert np.array_equal(good[k], jsynth.plan_to_args(plan)[k])
 
     bad = type(plan)(**{**plan.__dict__})
     g = bad.gain.copy()
-    g[np.argmax(bad.active)] = (100.0 + 1e-13) / 250.0
+    c = np.argmax(bad.active)
+    g[c] = (100.0 + 1e-13) / 250.0
     bad.gain = g
     with pytest.raises(ValueError, match="Q44"):
-        targs.plan_to_args(bad)
-    with pytest.raises(ValueError, match="Q44"):
         jsynth.plan_to_args(bad)
+    args = targs.plan_to_args(bad)
+    m = targs._LUT_MAGS.astype(np.int64)
+    ga, gb = int(args["gain_a"][c]), int(args["gain_b"][c])
+    assert np.array_equal((ga * m + ((gb * m) >> 22)) >> 22,
+                          np.trunc(targs._LUT_MAGS * g[c]).astype(np.int64))
+    assert int(np.trunc(250.0 * g[c])) == 100
 
 
 def test_unpack_args_round_trips_as_views(fixtures_dir):
