@@ -180,9 +180,10 @@ def device_facts() -> str:
 
 
 def build_all() -> dict:
-    """nvcc for every kernel source and g++ for the native engine, all
+    """nvcc for every kernel source and g++ for the native engines, all
     started together; returns seconds per build."""
     from gpssim_tpu_torch.ops import _build
+    from gpssim_tpu_torch.ops.args import load_engine
     from gpssim_tpu_torch.ops.synth_seq import seq_available
 
     times, errors = {}, []
@@ -202,6 +203,7 @@ def build_all() -> dict:
         if not seq_available():
             raise RuntimeError("native engine did not build "
                                "(tools/build_native.sh)")
+        load_engine()  # the collation engine: raises if g++ fails
 
     jobs = [(src, kernel(src)) for src in _build.sources()]
     threads = [threading.Thread(target=timed, args=job)

@@ -278,13 +278,15 @@ def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> dict:
 
 
 def _prepare_children(devices) -> None:
-    """Build the native engine and, on a card, load K1 and K2 before the
+    """Build the native engines and, on a card, load K1 and K2 before the
     children start, so that none of them builds either itself."""
+    from .ops.args import load_engine
     from .ops.synth_seq import seq_available
 
     if not seq_available():
         raise RuntimeError("the multi-process passes need the native "
                            "engine (tools/build_native.sh)")
+    load_engine()
     if any(d.type == "cuda" for d in devices):
         from .ops.synth_cuda import _kernel, _kernel_k2
 

@@ -356,7 +356,7 @@ def run_fleet(
 
     def batch_dispatch(batch):
         if mesh is None:
-            packed, pspec = pack_args(batch.args)
+            packed, pspec = pack_args(batch)
 
             def dispatch(p=packed, s=pspec):
                 return packed_kernel(p, s)
@@ -416,6 +416,9 @@ def run_fleet(
                 with span("collate", k):
                     batch = window_batch([p for _, p in tagged],
                                          pad=any_full)
+                    if batch.folds.any():
+                        for (member, _), n in zip(tagged, batch.folds):
+                            stats[member].gain_folds += int(n)
                 with span("pack", k):
                     dispatch = batch_dispatch(batch)
                 any_full = any_full or len(tagged) == W

@@ -1,18 +1,21 @@
 """ctypes bindings for the port's native host code.
 
-Three libraries. The shared host runtime (native/gpssim_native.cc, built
+Four libraries. The shared host runtime (native/gpssim_native.cc, built
 by tools/build_native.sh) gives the full sequential synthesizer of the
 native backend (``ops/synth_seq.synth_block_seq_native``) and the
 vectorized int16→int8 quantizer. The port's own sequential engine
 (``ops/seq.cc``) gives the strict-parity corrections and the planner's
-carrier chain. The port's own sink runtime (``io/fifo.cc``) gives the
-ring-FIFO-backed streaming IQ writer and the paced streamer, whose FIFOs
-count their producer's waits and copies, their depth and the blocks lent
-to them. The port's two are built on demand with g++ into
+carrier chain. The port's own collation engine (``ops/collate.cc``)
+turns a window of block plans into the packed kernel arguments
+(``ops/args.collate_plans``). The port's own sink runtime (``io/fifo.cc``)
+gives the ring-FIFO-backed streaming IQ writer and the paced streamer,
+whose FIFOs count their producer's waits and copies, their depth and the
+blocks lent to them. The port's three are built on demand with g++ into
 ``build/native/`` under a name that hashes the source and the flags, so a
 library built from an older source never loads. ``available()`` reports
 whether the sink runtime can be used, so callers fall back to the
-pure-Python sink gracefully.
+pure-Python sink gracefully; the collation engine has no fallback, and a
+failed build raises.
 """
 
 from __future__ import annotations
@@ -37,12 +40,14 @@ _BUILD = os.path.join(_ROOT, "tools", "build_native.sh")
 _FIFO_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "fifo.cc")
 _FIFO_DIR = os.path.join(_ROOT, "build", "native")
-_SEQ_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "ops", "seq.cc")
+_OPS_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "ops")
+_SEQ_SRC = os.path.join(_OPS_DIR, "seq.cc")
+_COLLATE_SRC = os.path.join(_OPS_DIR, "collate.cc")
 _FIFO_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-pthread")
 # -ffp-contract=off: the sequential replay must perform exactly the
-# IEEE-754 mul+add sequence of the reference C (no FMA contraction, which
-# would change the rounding).
+# IEEE-754 mul+add sequence of the reference C, and the collation NumPy's
+# (no FMA contraction, which would change the rounding).
 _SEQ_FLAGS = ("-std=c++17", "-O3", "-ffp-contract=off", "-shared", "-fPIC",
               "-pthread")
 
@@ -58,6 +63,7 @@ _fifo = None
 _fifo_error: str | None = None
 _seq = None
 _seq_error: str | None = None
+_collate = None
 
 
 def _load():
@@ -127,6 +133,22 @@ def _load_seq():
         except OSError as e:
             _seq_error = str(e)
         return _seq
+
+
+def load_collate():
+    """The port's collation engine (``ops/collate.cc``), built with g++ at
+    first use. A missing compiler or a failed build raises."""
+    global _collate
+    with _lib_lock:
+        if _collate is None:
+            try:
+                path = _build(_COLLATE_SRC, "collate", _SEQ_FLAGS)
+            except subprocess.CalledProcessError as e:
+                raise RuntimeError(
+                    f"g++ failed on ops/collate.cc: {e.stderr[-2000:]}"
+                ) from e
+            _collate = ctypes.CDLL(path)
+        return _collate
 
 
 def _load_fifo():

@@ -3,18 +3,24 @@
 Every block plan is converted, on the host and in float64, into the
 fixed-point int32 arrays the synthesis kernel consumes (Q46 code phase and
 Q53 carrier phase as base-2^23 limbs, the split per-lane steps, the 8-bit
-data-bit window, the split Q44 gain and the bit-packed C/A words). A window
-of blocks is collated in one vectorized pass and packed into ONE int32
-array, so it ships to the device as a single copy; :func:`unpack_args`
-turns the device copy back into per-field views.
+data-bit window, the split Q44 gain and the bit-packed C/A words):
+:func:`args_from_arrays` in NumPy. A window of blocks is collated and
+packed into ONE int32 array in one call of the port's collation engine
+(``ops/collate.cc``, :func:`collate_plans`), which computes exactly what
+``pack_args(args_from_arrays(...))`` of the compacted window gives, so it
+ships to the device as a single copy; :func:`unpack_args` turns the device
+copy back into per-field views.
 
-Pure NumPy apart from :func:`unpack_args` and :func:`to_device`.
+Pure NumPy apart from the engine, :func:`unpack_args` and
+:func:`to_device`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
+from operator import attrgetter
 
 import numpy as np
 
@@ -33,6 +39,15 @@ _M23 = (1 << 23) - 1
 ARG_ORDER = (
     "code_l", "carr_l", "nav", "lane_steps", "ca_packed", "gain_a", "gain_b",
 )
+
+# The collation's errors, in the order it checks them. Real exceptions,
+# not asserts: these invariants guard against silent output corruption
+# (wrong chips / data bits) and must survive ``python -O``.
+_Q46_RANGE = "block too long for the Q46 code-phase range"
+_ROW_WINDOW = ("sample rate too low even for the 128-chip row window "
+               "(minimum ~1.03 Msps)")
+_BIT_WINDOW = "data-bit window overflow: block too long for the 8-bit window"
+_NAV_BUFFER = "data-bit index past the 60-word nav buffer"
 
 
 def needs_wide_window(delt: float) -> bool:
@@ -97,12 +112,14 @@ def _fold_exact(g: float) -> tuple[int, int]:
         lo = max(lo, -((-t << 44) // m))  # ceil(t * 2^44 / T)
         hi = min(hi, -((-(t + 1) << 44) // m) - 1)
     if lo > hi:
-        raise ValueError(
-            f"no Q44 gain gives trunc(T*g) for every carrier-table "
-            f"magnitude T at g = {g!r}"
-        )
+        raise ValueError(_no_gain(g))
     G = min(max(int(np.floor(g * float(1 << 44))), lo), hi)
     return G >> 22, G & ((1 << 22) - 1)
+
+
+def _no_gain(g: float) -> str:
+    return (f"no Q44 gain gives trunc(T*g) for every carrier-table "
+            f"magnitude T at g = {g!r}")
 
 
 def args_from_arrays(
@@ -132,21 +149,15 @@ def args_from_arrays(
     """
     act = np.asarray(active)
     step = f_code * delt  # chips / sample, f64 (exactly as C forms it)
-    # Real exceptions, not asserts: these invariants guard against silent
-    # output corruption (wrong chips / data bits) and must survive
-    # ``python -O``.
     if not np.all(np.where(act, step, 0.0) * num_samples < (1 << 17)):
-        raise ValueError("block too long for the Q46 code-phase range")
+        raise ValueError(_Q46_RANGE)
     # A 128-lane row must stay inside its pre-shifted chip window:
     # 64 chips (2 words) on the fast path, 128 chips (4 words) when
     # needs_wide_window(delt) — which supports rates down to ~1.03 Msps
     # (one sample per chip; below that the C/A code is undersampled).
     limit = 127.0 if needs_wide_window(delt) else 63.0
     if not np.all(np.where(act, step, 0.0) * (LANES - 1) < limit):
-        raise ValueError(
-            "sample rate too low even for the 128-chip row window "
-            "(minimum ~1.03 Msps)"
-        )
+        raise ValueError(_ROW_WINDOW)
 
     code0_q = np.rint(code_phase * (1 << _Q_CODE)).astype(np.int64)
     cstep_q = np.rint(step * (1 << _Q_CODE)).astype(np.int64)
@@ -200,15 +211,13 @@ def args_from_arrays(
         )
     )
     if not np.all((tcu0 + wraps_max + 1) // 20 - bidx0 <= 7):
-        raise ValueError(
-            "data-bit window overflow: block too long for the 8-bit window"
-        )
+        raise ValueError(_BIT_WINDOW)
     bidx = bidx0[..., None] + np.arange(8, dtype=np.int64)  # (..., C, 8)
     iw = bidx // 30
     # A block never legitimately reads past word 59 (the window invariant
     # above bounds bidx); raise instead of clamping wrong bits in.
     if int(np.max(np.where(act[..., None], iw, 0))) > 59:
-        raise ValueError("data-bit index past the 60-word nav buffer")
+        raise ValueError(_NAV_BUFFER)
     iw = np.minimum(iw, 59)  # keep inactive-slot lanes in range
     ib = bidx - (bidx // 30) * 30
     wsel = np.take_along_axis(dwrd.astype(np.int64), iw, axis=-1)
@@ -324,19 +333,37 @@ def chain_carrier_phases(
 class PlanBatch:
     """A window of consecutive block plans collated for device dispatch."""
 
-    args: dict  # batched kernel args, leading axis = blocks
+    packed: np.ndarray  # int32 (B, K): the window's args as they ship
+    spec: tuple  # the layout of ``packed`` (pack_args, unpack_args)
     num_samples: int
     n_blocks: int
+    folds: np.ndarray  # int32 (B,): the slots whose Q44 gain was folded
+
+    @functools.cached_property
+    def args(self) -> dict:
+        """The batched kernel args (leading axis = blocks): NumPy views of
+        ``packed``."""
+        out, off = {}, 0
+        B = self.packed.shape[0]
+        for k, dtype_str, shape in self.spec:
+            n = int(np.prod(shape))
+            out[k] = self.packed[:, off:off + n].view(dtype_str).reshape(
+                (B,) + shape)
+            off += n
+        return out
 
 
-def pack_args(args: dict) -> tuple[np.ndarray, tuple]:
+def pack_args(args) -> tuple[np.ndarray, tuple]:
     """Flatten a batch's kernel args into ONE int32 array (B, K).
 
     Every collated arg is 32-bit with a leading blocks axis, so the whole
     window ships to the device as a single contiguous copy. Returns
     (packed, spec) where spec is the static layout for :func:`unpack_args`
-    (hashable: name, dtype str, trailing shape).
+    (hashable: name, dtype str, trailing shape). A :class:`PlanBatch` is
+    packed already: its array and spec are returned as they are.
     """
+    if isinstance(args, PlanBatch):
+        return args.packed, args.spec
     parts, spec = [], []
     for k in sorted(args):
         v = np.asarray(args[k])
@@ -383,11 +410,62 @@ def to_device(args: dict, device) -> dict:
     return out
 
 
+#: the plan fields the collation engine reads, by dtype, in its order
+_F64_FIELDS = attrgetter("code_phase", "f_code", "carr_phase", "f_carr",
+                         "gain")
+_I64_FIELDS = attrgetter("iword", "ibit", "icode", "prn")
+_NCO_FIELDS = attrgetter("carr_phase_i", "carr_step_i")
+
+
+@functools.cache
+def load_engine():
+    """The collation engine, ops/collate.cc's ``gcollate_window``, typed:
+    built with g++ the first time, loaded once a process. A missing
+    compiler or a failed build raises."""
+    from ..io.native import load_collate
+
+    fn = load_collate().gcollate_window
+    c, p = ctypes, ctypes.c_void_p
+    fn.restype = c.c_long
+    fn.argtypes = [
+        c.c_long, c.c_long, c.c_long, c.c_double, c.c_double,  # B..limit
+        c.c_int, c.c_int, c.c_long,  # int_nco, compact, compact_multiple
+        p, p, p, p, p,  # active, f64, i64, nco, dwrd
+        p, c.c_long, p, c.c_long,  # ca_table, rows; mags, count
+        p, p, p,  # out, folds, fault
+    ]
+    return fn
+
+
+@functools.cache
+def _spec(k: int) -> tuple:
+    """pack_args' spec of a window of ``k`` channel slots."""
+    u32, i32 = np.dtype(np.uint32).str, np.dtype(np.int32).str
+    return (
+        ("ca_packed", u32, (k, CA_PACKED_WORDS)), ("carr_l", i32, (4, k, 3)),
+        ("code_l", i32, (4, k, 3)), ("gain_a", i32, (k,)),
+        ("gain_b", i32, (k,)), ("lane_steps", i32, (4, k)),
+        ("nav", i32, (3, k)),
+    )
+
+
+#: int32 words per channel slot of a packed block
+_SLOT_WORDS = sum(int(np.prod(shape)) for _, _, shape in _spec(1))
+
+
+def _gathered(plans, fields, dtype) -> np.ndarray:
+    """The ``fields`` of every plan, in one array of ``dtype``."""
+    return np.concatenate(
+        [a for p in plans for a in fields(p)]).astype(dtype, copy=False)
+
+
 def collate_plans(
     plans: list[BlockPlan], int_nco: bool = False, compact: bool = True,
     compact_multiple: int = 1,
 ) -> PlanBatch:
-    """Stack plans and convert to kernel args in one vectorized pass.
+    """Collate and pack a window of plans in one call of the collation
+    engine: ``pack_args(args_from_arrays(...))`` of the compacted window,
+    word for word, and the same errors at the same inputs.
 
     With ``compact`` (default), each block's ACTIVE channels are moved to
     the front and the channel axis is trimmed to the batch's maximum
@@ -400,40 +478,49 @@ def collate_plans(
     (capped at the full channel count), bounding the number of distinct
     channel extents a long run produces.
     """
-
-    def f(name):
-        return np.stack([getattr(p, name) for p in plans], axis=0)
-
-    fields = dict(
-        active=f("active"), code_phase=f("code_phase"), f_code=f("f_code"),
-        carr_phase=f("carr_phase"), f_carr=f("f_carr"),
-        carr_phase_i=f("carr_phase_i"), carr_step_i=f("carr_step_i"),
-        gain=f("gain"), iword=f("iword"), ibit=f("ibit"), icode=f("icode"),
-        prn=f("prn"), dwrd=f("dwrd"),
-    )
-    if compact:
-        act = fields["active"]
-        k = max(1, int(act.sum(axis=1).max()))
-        if compact_multiple > 1:
-            k = min(-(-k // compact_multiple) * compact_multiple,
-                    act.shape[1])
-        # Stable order with active slots first, per block.
-        order = np.argsort(~act, axis=1, kind="stable")[:, :k]
-        for name, v in fields.items():
-            idx = order
-            if v.ndim == 3:  # dwrd (B, C, 60)
-                idx = order[..., None]
-            fields[name] = np.take_along_axis(v, idx, axis=1)
-
-    args = args_from_arrays(
-        fields["active"], fields["code_phase"], fields["f_code"],
-        fields["carr_phase"], fields["f_carr"], fields["carr_phase_i"],
-        fields["carr_step_i"], fields["gain"], fields["iword"],
-        fields["ibit"], fields["icode"], fields["prn"], fields["dwrd"],
-        plans[0].num_samples, plans[0].delt, int_nco=int_nco,
-    )
+    fn = load_engine()
+    p0 = plans[0]
+    B, C = len(plans), len(p0.active)
+    if any(len(p.active) != C for p in plans):
+        raise ValueError("collate_plans: the plans' channel counts differ")
+    active = np.concatenate([p.active for p in plans]).astype(
+        bool, copy=False)
+    f64 = _gathered(plans, _F64_FIELDS, np.float64)
+    i64 = _gathered(plans, _I64_FIELDS, np.int64)
+    nco = _gathered(plans, _NCO_FIELDS, np.int64) if int_nco else None
+    dwrd = np.concatenate([p.dwrd for p in plans]).astype(
+        np.uint32, copy=False)
+    if (f64.size, i64.size, dwrd.size) != (5 * B * C, 4 * B * C, 60 * B * C):
+        raise ValueError("collate_plans: a plan field has the wrong shape")
+    out = np.empty(B * _SLOT_WORDS * C, np.int32)
+    folds = np.empty(B, np.int32)
+    fault = np.zeros(1, np.float64)
+    table = _packed_table0()
+    limit = 127.0 if needs_wide_window(p0.delt) else 63.0
+    k = fn(B, C, p0.num_samples, p0.delt, limit, int_nco, compact,
+           compact_multiple, active.ctypes.data, f64.ctypes.data,
+           i64.ctypes.data, None if nco is None else nco.ctypes.data,
+           dwrd.ctypes.data, table.ctypes.data, len(table),
+           _LUT_MAGS.ctypes.data, len(_LUT_MAGS), out.ctypes.data,
+           folds.ctypes.data, fault.ctypes.data)
+    if k < 0:
+        raise _engine_error(k, float(fault[0]), len(table))
     return PlanBatch(
-        args=args,
-        num_samples=plans[0].num_samples,
-        n_blocks=len(plans),
+        packed=out[:B * _SLOT_WORDS * k].reshape(B, _SLOT_WORDS * k),
+        spec=_spec(k), num_samples=p0.num_samples, n_blocks=B, folds=folds,
     )
+
+
+def _engine_error(code: int, fault: float, table_rows: int) -> Exception:
+    """The exception the NumPy path raises where the engine returned
+    ``code`` (``enum Error`` in ops/collate.cc)."""
+    if code == -5:
+        return IndexError(f"index {int(fault)} is out of bounds for axis 1 "
+                          f"with size 60")
+    if code == -6:
+        return ValueError(_no_gain(fault))
+    if code == -7:
+        return IndexError(f"index {int(fault)} is out of bounds for axis 0 "
+                          f"with size {table_rows}")
+    return ValueError({-1: _Q46_RANGE, -2: _ROW_WINDOW, -3: _BIT_WINDOW,
+                       -4: _NAV_BUFFER}[code])

@@ -61,6 +61,9 @@ class RunStats:
     correct_candidates: int = 0
     correct_samples: int = 0
     correct_blocks: int = 0
+    # batched path: (block, channel) pairs whose Q44 gain the collation
+    # folded (ops/args._fold_exact); 0 on physical gains
+    gain_folds: int = 0
     retries: int = 0  # windows re-dispatched after a device error
     underruns: int = 0  # the sink's count at the end of the run (paced sinks)
     failovers: int = 0  # realtime backend failovers (RealtimeSupervisor)
@@ -368,17 +371,19 @@ def dispatch_window(cfg: SimConfig) -> int:
 def prepare_device(cfg: SimConfig, device, blocks: int,
                    channels: int | None = None) -> None:
     """What a paced run's first window would otherwise pay inside the
-    paced clock, done before it starts: CUDA's start-up on ``device``,
-    the kernel library's load (and its build, the first time), the K1
-    grid query its launch makes (which loads the kernel's module) for
-    windows of ``blocks`` blocks of ``channels`` channels (default
-    ``cfg.num_channels``), and a first pinned-buffer round trip. It
-    launches no kernel. A CPU device needs none of it."""
+    paced clock, done before it starts: the collation engine's load (and
+    its build, the first time); on a card also CUDA's start-up on
+    ``device``, the kernel library's load (and its build, the first
+    time), the K1 grid query its launch makes (which loads the kernel's
+    module) for windows of ``blocks`` blocks of ``channels`` channels
+    (default ``cfg.num_channels``), and a first pinned-buffer round trip.
+    It launches no kernel."""
+    from .ops.args import LANES, load_engine, needs_wide_window
+
+    load_engine()
     if device.type != "cuda":
         return
     import torch
-
-    from .ops.args import LANES, needs_wide_window
 
     bits = cfg.sample_format.value
     n = cfg.samples_per_epoch
@@ -675,7 +680,7 @@ def _run_batched(
                              compact_multiple=4)
 
     def window_args(plans: list, pad: bool) -> tuple:
-        return pack_args(window_batch(plans, pad).args)
+        return pack_args(window_batch(plans, pad))
 
     stats = RunStats()
     supervisor = RealtimeSupervisor(cfg, sink, stats) if cfg.realtime else None
@@ -763,8 +768,9 @@ def _run_batched(
             if plans:
                 with span("collate", k):
                     batch = window_batch(plans, pad=any_full)
+                    stats.gain_folds += int(batch.folds[:len(plans)].sum())
                 with span("pack", k):
-                    packed, spec = pack_args(batch.args)
+                    packed, spec = pack_args(batch)
                 any_full = any_full or len(plans) == W
 
                 def redispatch(p=packed, s=spec):
