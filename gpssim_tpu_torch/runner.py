@@ -1,7 +1,8 @@
 """End-to-end run loop: scenario plans → synth backend → quantize → sink.
 
-Runs on the cuda/torch backends take the pipelined batched path
-(:func:`_run_batched`): one kernel launch per window of
+Runs on the cuda/torch backends take the window pipeline
+(:func:`_run_batched`), one scenario here and N of them from
+``fleet.run_fleet``: one kernel launch per window of
 ``cfg.dispatch_blocks`` blocks, with two windows in flight, so the
 device-to-host copy, the strict-parity corrections and the sink write of
 one window overlap the next window's kernel. The numpy and native backends
@@ -356,16 +357,28 @@ def torch_device(name):
     return dev
 
 
-def dispatch_window(cfg: SimConfig) -> int:
-    """Blocks per launch of a single scenario. A realtime or interactive
-    run caps it at half the FIFO depth: with two windows in flight the
+def dispatch_window(cfgs, window: int | None = None) -> int:
+    """Blocks per launch of one scenario (a SimConfig) or of a fleet (a
+    list of them).
+
+    One scenario: ``cfg.dispatch_blocks``. A realtime or interactive run
+    caps it at half the FIFO depth: with two windows in flight the
     producer then runs at most ``fifo_depth`` blocks ahead of written
     output — the reference's pipeline latency (sdr.h:24), so a live
-    position edit reaches the stream within the same bound."""
-    window = max(1, cfg.dispatch_blocks)
-    if cfg.realtime or cfg.interactive:
-        window = max(1, min(window, cfg.fifo_depth // 2))
-    return window
+    position edit reaches the stream within the same bound. A fleet:
+    ``window`` if given; realtime, that bound for each member whatever
+    ``dispatch_blocks`` says; else one round or ``dispatch_blocks``,
+    whichever is larger."""
+    if isinstance(cfgs, SimConfig):
+        window = max(1, cfgs.dispatch_blocks)
+        if cfgs.realtime or cfgs.interactive:
+            window = max(1, min(window, cfgs.fifo_depth // 2))
+        return window
+    if window is not None:
+        return window
+    if cfgs[0].realtime:
+        return len(cfgs) * max(1, cfgs[0].fifo_depth // 2)
+    return max(cfgs[0].dispatch_blocks, len(cfgs))
 
 
 def prepare_device(cfg: SimConfig, device, blocks: int,
@@ -450,13 +463,13 @@ def run_simulation(
 
     on_block(stats, sim, plan) is called after each block (or window) is
     written (checkpointing, metrics); stop() → True aborts cleanly between
-    blocks.
+    blocks. ``sim.consistent_snapshot`` holds the state of the blocks
+    written while the planner runs ahead of them (None when the live state
+    is that state).
 
-    cuda/torch runs take the pipelined batched path: one kernel launch per
-    window of ``cfg.dispatch_blocks`` blocks (realtime: at most half the
-    FIFO depth, and so for interactive runs), with the device work of
-    window k+1 overlapped against the copy back, corrections and sink write
-    of window k. numpy/native runs go block by block."""
+    cuda/torch runs take the window pipeline :func:`_run_batched` as its
+    one member, in windows of :func:`dispatch_window` blocks; numpy/native
+    runs go block by block."""
     device = None
     if cfg.backend in DEVICE_BACKENDS:
         device = resolve_device(cfg)  # no card for device="cuda" raises
@@ -464,11 +477,31 @@ def run_simulation(
         sim = Simulation(cfg)
     if sink is None:
         sink = make_configured_sink(cfg)
-    sink.init(cfg)
 
     if device is not None:
-        return _run_batched(cfg, sink, sim, on_block, stop, device)
+        from .checkpoint import capture_state
 
+        member = Member(cfg, sim, sink)
+        window = dispatch_window(cfg)
+        if cfg.realtime:
+            prepare_device(cfg, device, window)
+
+        def keep(snap) -> None:
+            sim.consistent_snapshot = snap
+
+        hook = None
+        if on_block is not None:
+            def hook(items, synced: bool) -> None:
+                if synced:
+                    on_block(member.stats, sim, items[-1][1])
+
+        _run_batched([member], ((0, p) for p in sim.iter_plans()),
+                     _packed_dispatch(cfg, device), window,
+                     lambda: member.stats.blocks, keep,
+                     lambda: capture_state(sim), hook, stop)
+        return member.stats
+
+    sink.init(cfg)
     synth_fn = make_synth_fn(cfg)
     bits = cfg.sample_format.value
     base_index = sim.next_block_index  # noise keying (resume-stable)
@@ -608,13 +641,6 @@ def make_packed_kernel(kernel, n_rows: int, num_samples: int, bits: int,
     return dispatch
 
 
-def book_corrections(stats: RunStats, candidates, patched) -> None:
-    """Add a window's (or one block's) correction counts to ``stats``."""
-    stats.correct_candidates += int(np.sum(candidates))
-    stats.correct_samples += int(np.sum(patched))
-    stats.correct_blocks += int(np.count_nonzero(patched))
-
-
 def fetch_batch(fut: InFlight, redispatch) -> tuple[np.ndarray, bool]:
     """Wait for a window with the transient-failure retry policy.
 
@@ -639,201 +665,281 @@ def fetch_batch(fut: InFlight, redispatch) -> tuple[np.ndarray, bool]:
     return host, retried
 
 
-def _run_batched(
-    cfg: SimConfig, sink: Sink, sim: Simulation, on_block, stop, device,
-) -> RunStats:
-    """Pipelined batched device path (see run_simulation docstring).
+@dataclass
+class Member:
+    """One scenario of a batched run: its config, planner, sink and stats.
+    ``base_index`` keys its noise (resume-stable: the planner's cursor
+    when the run starts)."""
 
-    The bounded in-flight window (2 windows) is the pipeline depth; the
-    asynchrony of CUDA streams provides the overlap. Each stage of a window
-    is a :func:`trace.span` under the window's sequence number."""
-    from .checkpoint import capture_state
-    from .ops.args import collate_plans, pack_args
+    cfg: SimConfig
+    sim: Simulation
+    sink: Sink
+    stats: RunStats = field(default_factory=RunStats)
+
+    def __post_init__(self):
+        self.base_index = self.sim.next_block_index
+
+
+class _RunView:
+    """A batched run as the RealtimeSupervisor and the failback see it,
+    passed as both their sink and their stats. ``blocks`` is the pacing
+    count, which the loop keeps current. The members' sinks count as one:
+    backlogged when any is (that stream's consumer is below the DAC rate;
+    a synthesis failover cannot help), their underruns summed. The verdicts
+    booked (events, failovers, failbacks, the failover latency) land on
+    member 0's RunStats, where callers read them during and after the run.
+    """
+
+    def __init__(self, members: list):
+        self.__dict__.update(blocks=0, _sinks=[mb.sink for mb in members],
+                             _stats=members[0].stats)
+
+    @property
+    def backlogged(self) -> bool:
+        return any(getattr(s, "backlogged", False) for s in self._sinks)
+
+    @property
+    def underruns(self) -> int:
+        return sum(getattr(s, "underruns", 0) for s in self._sinks)
+
+    def __getattr__(self, name):
+        return getattr(self._stats, name)
+
+    def __setattr__(self, name, value):
+        if name == "blocks":
+            self.__dict__[name] = value
+        else:
+            setattr(self._stats, name, value)
+
+
+def probe_window_blocks(items) -> float:
+    """Signal time, in blocks of 0.1 s, of a probe window of (member,
+    plan) items: round-robin over the members actually in it, so a fleet
+    whose members have finished is not judged by those members."""
+    return len(items) / len({member for member, _ in items})
+
+
+def _window_batch(cfg: SimConfig, plans: list, window: int, pad: bool):
+    """Collate a window of plans; with ``pad``, a short tail window is
+    padded to ``window`` blocks (synthesized and dropped), so every launch
+    has one shape. Compaction trims the channel axis to the window's max
+    active count in multiples of 4; a paced or interactive run keeps the
+    full axis: one launch shape, whatever a live edit does."""
+    from .ops.args import collate_plans
+
+    if pad and len(plans) < window:
+        plans = plans + [plans[-1]] * (window - len(plans))
+    return collate_plans(plans, int_nco=cfg.carrier_mode is CarrierMode.INT_NCO,
+                         compact=not (cfg.realtime or cfg.interactive),
+                         compact_multiple=4)
+
+
+def _packed_dispatch(cfg: SimConfig, device):
+    """The window dispatcher on one device: ``batch -> redispatch``, where
+    ``redispatch()`` launches the batch's packed window through
+    :func:`make_packed_kernel` and returns its :class:`InFlight`."""
+    from .ops.args import pack_args
+
+    kernel, wide, n_rows, bits = resolve_batch_kernel(cfg)
+    launch = make_packed_kernel(kernel, n_rows, cfg.samples_per_epoch, bits,
+                                wide, device)
+
+    def dispatch(batch):
+        packed, spec = pack_args(batch)
+        return lambda: launch(packed, spec)
+
+    return dispatch
+
+
+def _run_batched(members: list, items, dispatch, window: int, paced_blocks,
+                 keep, snapshot=None, hook=None, stop=None) -> None:
+    """The window pipeline of the cuda/torch backends, for one scenario
+    (:func:`run_simulation`) and for a fleet (``fleet.run_fleet``).
+
+    ``items`` yields (member index, plan) in write order. Each window of
+    ``window`` items is planned, collated (:func:`_window_batch`), packed
+    and launched by ``dispatch`` (``batch -> redispatch``, on one device
+    or a fleet's mesh), then waited for, corrected under strict parity and
+    written to its members' sinks. Two windows are in flight, so one
+    window's copy back, corrections and writes overlap the next one's
+    kernel. A realtime run paces and is supervised after each window; a
+    failover goes on natively (:func:`_native_tail`). Each stage of a
+    window is a :func:`trace.span` under the window's number. Host stage
+    times, retries and the supervisor's verdicts are booked on member 0;
+    blocks, samples, gain folds and corrections on the block's member.
+
+    Besides members, items, dispatcher and window, the callers differ
+    only in these callables:
+
+    * ``paced_blocks()``: the written signal, in blocks, that pacing and
+      the supervisor follow; None once nothing is left to pace. One
+      scenario: its blocks; a fleet: its slowest live member's.
+    * ``snapshot()``: the state of every plan handed out so far, taken at
+      each launch; ``keep(snap)`` gets it once the window is at the sinks,
+      and None when the live state is the written state again (or no
+      snapshot is taken). One scenario: ``capture_state`` into
+      ``sim.consistent_snapshot``; a fleet: ``capture_fleet_state``, only
+      when it checkpoints.
+    * ``hook(items, synced)``: after each window (synced), and in the
+      native tail once per round of members, synced while no probed plan
+      waits. One scenario: ``on_block`` when synced; a fleet:
+      ``on_batch``, and its 30 s checkpoint when synced.
+    * ``stop()``: True ends the run between windows.
+    """
     from .trace import span
 
-    int_nco = cfg.carrier_mode is CarrierMode.INT_NCO
-    kernel, wide, n_rows, bits = resolve_batch_kernel(cfg)
-    dispatch = make_packed_kernel(
-        kernel, n_rows, cfg.samples_per_epoch, bits, wide, device
-    )
-    W = dispatch_window(cfg)
-    strict = strict_parity_enabled(cfg)
+    cfg0 = members[0].cfg
+    realtime = cfg0.realtime
+    int_nco = cfg0.carrier_mode is CarrierMode.INT_NCO
+    bits = cfg0.sample_format.value
+    strict = strict_parity_enabled(cfg0)
     if strict:
         from .ops.synth_seq import correct_window
-    base_index = sim.next_block_index  # noise keying (resume-stable)
-    if cfg.noise_std_lsb > 0.0:
+    if any(mb.cfg.noise_std_lsb > 0.0 for mb in members):
         from .noise import apply_awgn
-    # Channel compaction trims the channel axis to the window's max active
-    # count, which changes at 30 s reallocations. A paced or interactive
-    # run keeps the full channel axis: one launch shape for the whole run,
-    # whatever a live edit does to the visible satellites.
-    compact = not (cfg.realtime or cfg.interactive)
-
-    def window_batch(plans: list, pad: bool):
-        # Padding blocks (a short tail window up to W, so every launch
-        # has the same shape) are synthesized and dropped. compact_multiple
-        # =4 bounds the distinct channel extents as 30 s reallocations
-        # drift the max-active count.
-        if pad and len(plans) < W:
-            plans = plans + [plans[-1]] * (W - len(plans))
-        return collate_plans(plans, int_nco=int_nco, compact=compact,
-                             compact_multiple=4)
-
-    def window_args(plans: list, pad: bool) -> tuple:
-        return pack_args(window_batch(plans, pad))
-
-    stats = RunStats()
-    supervisor = RealtimeSupervisor(cfg, sink, stats) if cfg.realtime else None
-    it = sim.iter_plans()
-    # (in_flight, redispatch_fn, plans, snapshot, window number)
+    st0 = members[0].stats
+    watch = _RunView(members)
+    supervisor = None
+    if realtime:
+        supervisor = RealtimeSupervisor(cfg0, watch, watch)
+    # (in_flight, redispatch, items, snapshot, window number)
     pending: deque = deque()
-    # Nothing written yet: a checkpoint taken before the first window
-    # drains must capture the pre-run state, not planner-ahead state.
-    sim.consistent_snapshot = capture_state(sim)
-    any_full = False  # a W-block window has been dispatched
-    if cfg.realtime:
-        prepare_device(cfg, device, W)
-    t0 = time.perf_counter()
+    any_full = False  # a full window has been dispatched
 
-    def drain_one() -> int:
-        """Write the oldest window; returns its number."""
-        fut, redispatch, done_plans, snap, k = pending.popleft()
+    def taken():
+        return snapshot() if snapshot is not None else None
+
+    # Nothing written yet: a stop before the first window drains must keep
+    # the pre-run state, not the planner's run-ahead state.
+    keep(taken())
+
+    def drain(window: tuple) -> None:
+        """Write a window taken from ``pending`` to its sinks."""
+        fut, redispatch, done, snap, k = window
         tf = time.perf_counter()
         with span("wait", k):
             host, retried = fetch_batch(fut, redispatch)  # quantized
         tc = time.perf_counter()
-        stats.fetch_seconds += tc - tf
-        stats.retries += retried
-        blocks = list(host)
+        st0.fetch_seconds += tc - tf
+        st0.retries += retried  # one re-dispatch, booked once
+        blocks = list(host[:len(done)])
         if strict:
             with span("correct", k):
                 blocks, cands, patched = correct_window(
-                    blocks, done_plans, bits, int_nco)
-            book_corrections(stats, cands, patched)
-        stats.correct_seconds += time.perf_counter() - tc
+                    blocks, [p for _, p in done], bits, int_nco)
+            for (m, _), c, n in zip(done, cands.tolist(), patched.tolist()):
+                st = members[m].stats
+                st.correct_candidates += c
+                st.correct_samples += n
+                st.correct_blocks += n > 0
+        st0.correct_seconds += time.perf_counter() - tc
         with span("sink", k):
-            for blk, plan in zip(blocks, done_plans):
-                if cfg.noise_std_lsb > 0.0:
-                    blk = apply_awgn(blk, bits, cfg.noise_std_lsb,
-                                     cfg.noise_seed, 0,
-                                     base_index + stats.blocks)
-                sink.write(blk)
-                stats.blocks += 1
-                stats.samples += plan.num_samples
-        stats.wall_seconds = time.perf_counter() - t0
-        sim.consistent_snapshot = snap
-        if on_block is not None:
+            for blk, (m, plan) in zip(blocks, done):
+                mb = members[m]
+                st, mc = mb.stats, mb.cfg
+                if mc.noise_std_lsb > 0.0:
+                    # keyed per member stream: a fleet member's noisy
+                    # bytes equal its solo run's
+                    blk = apply_awgn(blk, bits, mc.noise_std_lsb,
+                                     mc.noise_seed, 0,
+                                     mb.base_index + st.blocks)
+                mb.sink.write(blk)
+                st.blocks += 1
+                st.samples += plan.num_samples
+                st.wall_seconds = time.perf_counter() - t0
+        # A snapshot taken at launch: by now the planner has run ahead, and
+        # hooks must see the state of the blocks actually written, or a
+        # checkpoint would skip the in-flight window on resume.
+        keep(snap)
+        if hook is not None:
             with span("hook", k):
-                on_block(stats, sim, done_plans[-1])
-        return k
+                hook(done, True)
 
-    def fail_over() -> bool:
-        """The device path cannot hold 1x: write the in-flight windows'
-        plans natively (never fetching them through the path that just
-        proved too slow), then carry the stream natively while probing
-        the device path. Returns True on failback (the loop resumes from
-        the next unwritten plan) and False when the run ended (scenario
-        done or stop())."""
-        t_act = time.perf_counter()
-        if _drain_pending_native(cfg, sink, sim, pending, stats, t0,
-                                 on_block, stop, base_index, t_act):
-            return False
-        # every handed-out plan is written: hooks use the live state again
-        sim.consistent_snapshot = None
-
-        def after_block(plan, synced: bool) -> bool:
-            if on_block is not None and synced:
-                on_block(stats, sim, plan)
-            if stop is not None and stop():
-                return True
-            pace(stats.blocks, t0, cfg.fifo_depth)
-            return False
-
-        probe = None
-        if cfg.failback_probe_sec > 0:
-            probe = DeviceProbe(
-                lambda plans: dispatch(*window_args(plans, pad=True)), W,
-                stats.events)
-        return native_until_failback(
-            it, _make_native_writer(cfg, sink, stats, t0, base_index, t_act),
-            after_block, supervisor, stats, probe, W)
-
+    inited = 0
     try:
+        for mb in members:
+            mb.sink.init(mb.cfg)
+            inited += 1
+        t0 = time.perf_counter()
         for k in itertools.count():
             ts = time.perf_counter()
             with span("plan", k):
-                plans = list(itertools.islice(it, W))
+                tagged = list(itertools.islice(items, window))
             tp = time.perf_counter()
-            stats.plan_seconds += tp - ts
-            if plans:
+            st0.plan_seconds += tp - ts
+            if tagged:
                 with span("collate", k):
-                    batch = window_batch(plans, pad=any_full)
-                    stats.gain_folds += int(batch.folds[:len(plans)].sum())
+                    batch = _window_batch(cfg0, [p for _, p in tagged],
+                                          window, pad=any_full)
+                    if batch.folds.any():
+                        for (m, _), n in zip(tagged, batch.folds):
+                            members[m].stats.gain_folds += int(n)
                 with span("pack", k):
-                    packed, spec = pack_args(batch)
-                any_full = any_full or len(plans) == W
-
-                def redispatch(p=packed, s=spec):
-                    return dispatch(p, s)
-
+                    redispatch = dispatch(batch)
+                any_full = any_full or len(tagged) == window
                 with span("launch", k):
                     fut = redispatch()
-                # Snapshot NOW: sim state currently matches "all planned
-                # blocks done". By the time this window drains, the planner
-                # has run ahead — hooks must see the state matching the
-                # blocks actually written, or a checkpoint would skip the
-                # in-flight window on resume.
-                with span("snapshot", k):
-                    snap = capture_state(sim)
-                pending.append((fut, redispatch, plans, snap, k))
-                stats.synth_seconds += time.perf_counter() - tp
-            if (not plans and pending) or len(pending) >= 2:
-                drained = drain_one()
-                if cfg.realtime:
-                    with span("pace", drained):
-                        pace(stats.blocks, t0, cfg.fifo_depth)
+                st0.synth_seconds += time.perf_counter() - tp
+                snap = None
+                if snapshot is not None:
+                    with span("snapshot", k):
+                        snap = snapshot()
+                pending.append((fut, redispatch, tagged, snap, k))
+            if (not tagged and pending) or len(pending) >= 2:
+                # Held until the next one is taken: freeing its buffers then
+                # overlaps the card's work, not its idle time (unspanned).
+                drained = pending.popleft()
+                drain(drained)
+                live = paced_blocks() if realtime else None
+                verdict = None
+                if live is not None:
+                    watch.blocks = live
+                    with span("pace", drained[4]):
+                        pace(live, t0, cfg0.fifo_depth)
                         verdict = supervisor.check(t0)
-                    if verdict == "failover":
-                        if not fail_over():
-                            break
-                        # Failback: every plan handed out is written, so
-                        # the live state matches the stream again; the
-                        # loop continues from the next unwritten plan.
-                        sim.consistent_snapshot = capture_state(sim)
-                        continue
-            if not plans and not pending:
-                # Normal completion: live state matches the written blocks
-                # again, so later checkpoints can use it directly.
-                sim.consistent_snapshot = None
+                if verdict == "failover":
+                    if not _native_tail(members, pending, items, window,
+                                        dispatch, supervisor, watch, t0,
+                                        paced_blocks, keep, hook, stop):
+                        break
+                    # Failback: every plan handed out is written, so the
+                    # live state matches the stream again; the loop goes
+                    # on from the next unwritten plan.
+                    keep(taken())
+                    continue
+            if not tagged and not pending:
+                keep(None)  # the live state matches the written blocks
                 break
             if stop is not None and stop():
-                # Stopped with a window in flight: keep the last drain-time
-                # snapshot so a final checkpoint doesn't skip unwritten
-                # blocks.
+                # Stopped with a window in flight: the last kept snapshot
+                # stays, so a final checkpoint skips no unwritten block.
                 break
     finally:
-        sink.close()
-    stats.wall_seconds = time.perf_counter() - t0
-    stats.underruns = getattr(sink, "underruns", 0)
-    return stats
+        # End-of-stream on every sink first (non-blocking): close() below
+        # flushes each paced sink at the DAC rate in turn, and a later
+        # sink's pacer must not count that wait as underruns. A caller's
+        # sink need not have it (nor any method but init, write, close).
+        for mb in members[:inited]:
+            getattr(mb.sink, "end_stream", lambda: None)()
+        for mb in members[:inited]:
+            mb.sink.close()
+    wall = time.perf_counter() - t0
+    for mb in members:
+        if mb.stats.blocks:
+            mb.stats.wall_seconds = wall
+        mb.stats.underruns = getattr(mb.sink, "underruns", 0)
 
 
-def _make_native_writer(cfg: SimConfig, sink: Sink, stats: RunStats,
-                        t0: float, base_index: int, t_act: float,
-                        latency_stats: RunStats | None = None):
-    """Per-block native synth→quantize→noise→write→stats sequence shared
-    by the failover drain/continuation paths and the fleet's native tail
-    (single-sourced so accounting and noise keying cannot drift between
-    them). Also records failover_latency_s — decision to first native
-    block at the sink — on ``latency_stats`` (defaults to ``stats``; a
-    fleet passes its aggregate so the FIRST member byte defines the
-    fleet's recovery latency).
+def _make_native_writer(member: Member, t0: float, t_act: float,
+                        latency_stats):
+    """A member's per-block native synth→quantize→noise→write→stats
+    sequence for the failover paths; records failover_latency_s, decision
+    to the first native block at any sink, on ``latency_stats``.
 
     Clean 8-bit streams quantize inside the native loop (one fewer
     full-block numpy pass per 0.1 s); noisy/16-bit streams keep the
     quantize-then-noise order of the batched path."""
-    if latency_stats is None:
-        latency_stats = stats
+    cfg, sink, stats = member.cfg, member.sink, member.stats
     noisy = cfg.noise_std_lsb > 0.0
     bits = cfg.sample_format.value
     direct8 = bits == 8 and not noisy
@@ -848,8 +954,8 @@ def _make_native_writer(cfg: SimConfig, sink: Sink, stats: RunStats,
         if not direct8:
             blk = quantize_iq(blk, bits)
         if noisy:
-            blk = apply_awgn(blk, bits, cfg.noise_std_lsb,
-                             cfg.noise_seed, 0, base_index + stats.blocks)
+            blk = apply_awgn(blk, bits, cfg.noise_std_lsb, cfg.noise_seed,
+                             0, member.base_index + stats.blocks)
         sink.write(blk)
         if latency_stats.failover_latency_s is None:
             latency_stats.failover_latency_s = time.perf_counter() - t_act
@@ -860,30 +966,79 @@ def _make_native_writer(cfg: SimConfig, sink: Sink, stats: RunStats,
     return write_block
 
 
-def _drain_pending_native(
-    cfg: SimConfig, sink: Sink, sim: Simulation, pending, stats: RunStats,
-    t0: float, on_block, stop, base_index: int, t_act: float,
-) -> bool:
-    """Write the in-flight windows' blocks from the native engine at
-    RealtimeSupervisor failover, leaving the device results unread (the
-    native engine writes the same bytes, and restores the sink's lead in
-    milliseconds). Block accounting, noise keying, checkpoint snapshots
-    and on_block hooks match drain_one. Returns True when stop() ended the
-    run between windows."""
-    write_block = _make_native_writer(cfg, sink, stats, t0, base_index,
-                                      t_act)
+def _native_tail(members: list, pending, items, window: int, dispatch,
+                 supervisor: RealtimeSupervisor, watch: _RunView, t0: float,
+                 paced_blocks, keep, hook=None, stop=None) -> bool:
+    """Carry a realtime run on the native sequential engine after a
+    RealtimeSupervisor failover (the callables as in :func:`_run_batched`).
+
+    First the in-flight windows, each kept and hooked as a drained device
+    window is, their device results left unread: the native engine writes
+    the same bytes, and restores the sinks' lead in milliseconds. Then the
+    rest of ``items`` through :func:`native_until_failback`, hooked once
+    per round of members, with ``watch.blocks`` current after every write
+    for the supervisor's flap count.
+
+    Returns True once a probe proved the device path healthy and every
+    probed item is written (the caller resumes from the next unwritten
+    one), and False when the run ended (items done, or stop())."""
+    cfg0 = members[0].cfg
+    t_act = time.perf_counter()
+    writers = [_make_native_writer(mb, t0, t_act, watch) for mb in members]
+
+    def write_item(item) -> None:
+        m, plan = item
+        writers[m](plan)
+
+    def paced() -> int | None:
+        live = paced_blocks()
+        if live is not None:
+            watch.blocks = live
+        return live
+
     while pending:
-        _fut, _redispatch, done_plans, snap, _k = pending.popleft()
-        for plan in done_plans:
-            write_block(plan)
-        sim.consistent_snapshot = snap
-        if on_block is not None:
-            on_block(stats, sim, done_plans[-1])
+        _fut, _redispatch, done, snap, _k = pending.popleft()
+        for item in done:
+            write_item(item)
+        live = paced()
+        if live is not None:
+            pace(live, t0, cfg0.fifo_depth)
+        keep(snap)
+        if hook is not None:
+            hook(done, True)
+        if stop is not None and stop():
+            return False
+    keep(None)  # every plan handed out is written
+    writes = 0
+
+    def after_item(item, synced: bool) -> bool:
+        nonlocal writes
+        writes += 1
+        live = paced()
+        if writes % len(members):
+            return False  # the rest once per round of members
+        if hook is not None:
+            hook([item], synced)
         if stop is not None and stop():
             return True
-    return False
+        if live is not None:
+            pace(live, t0, cfg0.fifo_depth)
+        return False
 
+    probe = None
+    if cfg0.failback_probe_sec > 0:
+        probe = DeviceProbe(
+            lambda plans: dispatch(
+                _window_batch(cfg0, plans, window, pad=True))(),
+            window / len(members), watch.events)
 
+    def start_probe(probed) -> None:
+        probe.start([p for _, p in probed],
+                    window_blocks=probe_window_blocks(probed))
+
+    return native_until_failback(
+        items, write_item, after_item, supervisor, watch, probe, window,
+        start_probe, items_per_tick=len(members))
 
 
 def native_until_failback(

@@ -14,6 +14,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from gpssim_tpu import cli as jcli
 from gpssim_tpu import fleet as jfleet
@@ -22,7 +23,7 @@ from gpssim_tpu.config import SampleFormat as JSampleFormat
 from gpssim_tpu.config import SimConfig as JSimConfig
 from gpssim_tpu.config import SynthBackend as JSynthBackend
 from gpssim_tpu.io.sinks import NullSink as JNullSink
-from gpssim_tpu_torch import cli, fleet
+from gpssim_tpu_torch import cli, fleet, trace
 from gpssim_tpu_torch.checkpoint import load_fleet_checkpoint
 from gpssim_tpu_torch.config import (
     LocationConfig, SampleFormat, SimConfig, SynthBackend,
@@ -315,3 +316,43 @@ def test_fleet_refusals(fixtures_dir, tmp_path):
     with pytest.raises(ValueError, match="at least one"):
         fleet.run_fleet([])
     assert not (tmp_path / "b.bin").exists()
+
+
+@pytest.mark.parametrize("parity_exact", [False, True],
+                         ids=["closed_form", "strict"])
+def test_one_scenario_alone_and_as_a_fleet_of_one(fixtures_dir,
+                                                  parity_exact):
+    """``run_simulation`` and ``run_fleet([cfg])`` run the one window
+    pipeline: the same bytes, counters and (stage, window) spans, but for
+    the snapshot that only the single scenario takes."""
+    cfg = SimConfig(nav_file=f"{fixtures_dir}/brdc_test.22n",
+                    almanac_enable=False, duration_sec=0.8,
+                    backend=SynthBackend.CUDA,
+                    device="cpu", dispatch_blocks=4,
+                    parity_exact=parity_exact)
+    runs = []
+    for alone in (True, False):
+        sink = CaptureSink()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            if alone:
+                st = run_simulation(cfg, sink=sink,
+                                    on_block=lambda *a: None)
+            else:
+                [st] = fleet.run_fleet([cfg], sinks=[sink],
+                                       on_batch=lambda s: None)
+        spans = sorted(
+            (int(k), stage) for stage, _, k in (
+                e.name[len(trace.PREFIX):].partition("#")
+                for e in prof.events() if e.name.startswith(trace.PREFIX))
+            if stage != "snapshot")
+        runs.append((sink.data, st, spans))
+    (alone, sa, spans_a), (member, sb, spans_b) = runs
+    _equal([member], [alone])
+    for name in ("blocks", "samples", "gain_folds", "correct_candidates",
+                 "correct_samples", "correct_blocks"):
+        assert getattr(sb, name) == getattr(sa, name), name
+    assert sa.blocks == 7 and (sa.correct_candidates > 0) == parity_exact
+    assert spans_b == spans_a
+    assert {s for _, s in spans_a} == (
+        {"plan", "collate", "pack", "launch", "wait", "sink", "hook"}
+        | ({"correct"} if parity_exact else set()))

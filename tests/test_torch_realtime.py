@@ -571,6 +571,29 @@ def test_host_loop_paced_failover(fixtures_dir, tmp_path, tmp_path_factory,
                                    pkg="jax"))
 
 
+def _fleet_tail(cfgs):
+    """A paced fleet's members with NullSinks, and the supervisor and its
+    view of the run as ``runner._run_batched`` makes them."""
+    sims = [Simulation(c) for c in cfgs]
+    sinks = [NullSink() for _ in cfgs]
+    members = [runner.Member(c, s, k) for c, s, k in zip(cfgs, sims, sinks)]
+    agg = runner._RunView(members)
+    sup = runner.RealtimeSupervisor(cfgs[0], agg, agg)
+    return sims, members, [mb.stats for mb in members], agg, sup
+
+
+def _run_fleet_tail(sims, members, stats, agg, sup, kept=None) -> bool:
+    """The native tail of a fleet failed over with nothing in flight: 8-item
+    probe windows, paced on the slowest live member (``run_fleet``'s
+    count), its clock far behind so pacing never sleeps."""
+    totals = [s.numd - 1 for s in sims]
+    t0 = time.perf_counter() - 100.0
+    return runner._native_tail(
+        members, [], fleet._interleave_plans(sims), 8, None, sup, agg, t0,
+        lambda: fleet._live_min_blocks(stats, totals),
+        [].append if kept is None else kept.append)
+
+
 def test_fleet_tail_keeps_flap_count(fixtures_dir, tmp_path, monkeypatch):
     """The native tail keeps the supervisor's block count current, so a
     failback records the real count and a failover soon after it is a
@@ -578,20 +601,13 @@ def test_fleet_tail_keeps_flap_count(fixtures_dir, tmp_path, monkeypatch):
     the count where the failover found it)."""
     cfgs = _fleet_cfgs(fixtures_dir, tmp_path, (2.0, 2.0),
                        failback_probe_sec=0.2)
-    sims = [Simulation(c) for c in cfgs]
-    sinks = [NullSink() for _ in cfgs]
-    stats = [runner.RunStats() for _ in cfgs]
-    agg = runner.RunStats()
-    sup = runner.RealtimeSupervisor(cfgs[0], fleet._FleetTransportView(sinks),
-                                    agg)
+    sims, members, stats, agg, sup = _fleet_tail(cfgs)
     assert sup.check(T0, now=T0 + 10.0) == "failover"
     throttle = Throttle(monkeypatch)
     _instant_probe(monkeypatch, throttle)
-    probe = runner.DeviceProbe(None, 4, agg.events)
-    t0 = time.perf_counter() - 100.0  # far behind: pacing never sleeps
-    failed_back, snap = fleet._fleet_native_tail(
-        cfgs, sinks, [], fleet._interleave_plans(sims), stats, agg, t0,
-        [1, 1], None, None, t0, [s.numd - 1 for s in sims], sup, probe, 8)
+    kept = []  # the tail's snapshots: None once the live state is written
+    failed_back = _run_fleet_tail(sims, members, stats, agg, sup, kept)
+    snap = kept[-1]
     assert failed_back and snap is None
     assert agg.failbacks == 1
     written = [st.blocks for st in stats]
@@ -609,12 +625,7 @@ def test_fleet_tail_probe_window_counts_live_members(fixtures_dir, tmp_path,
     once the short member has finished (``W / len(cfgs)`` would give 4)."""
     cfgs = _fleet_cfgs(fixtures_dir, tmp_path, (0.5, 2.0),
                        failback_probe_sec=0.2)
-    sims = [Simulation(c) for c in cfgs]
-    sinks = [NullSink() for _ in cfgs]
-    stats = [runner.RunStats() for _ in cfgs]
-    agg = runner.RunStats()
-    sup = runner.RealtimeSupervisor(cfgs[0], fleet._FleetTransportView(sinks),
-                                    agg)
+    sims, members, stats, agg, sup = _fleet_tail(cfgs)
     assert sup.check(T0, now=T0 + 10.0) == "failover"
     windows = []
 
@@ -625,11 +636,7 @@ def test_fleet_tail_probe_window_counts_live_members(fixtures_dir, tmp_path,
         self._dt, self._err, self._thread = [0.0], [], None
 
     monkeypatch.setattr(runner.DeviceProbe, "start", start)
-    probe = runner.DeviceProbe(None, 4, agg.events)
-    t0 = time.perf_counter() - 100.0  # far behind: pacing never sleeps
-    failed_back, _ = fleet._fleet_native_tail(
-        cfgs, sinks, [], fleet._interleave_plans(sims), stats, agg, t0,
-        [1, 1], None, None, t0, [s.numd - 1 for s in sims], sup, probe, 8)
+    failed_back = _run_fleet_tail(sims, members, stats, agg, sup)
     assert failed_back and stats[0].blocks == sims[0].numd - 1
     assert windows == [(8, 4.0), (8, 8.0)]
 
@@ -641,10 +648,10 @@ def test_fleet_probe_window_in_fleet_time(fixtures_dir, tmp_path):
     cfgs = _fleet_cfgs(fixtures_dir, tmp_path, (0.5, 2.0))
     it = fleet._interleave_plans([Simulation(c) for c in cfgs])
     first = list(itertools.islice(it, 8))
-    assert fleet.probe_window_blocks(first) == 4.0
+    assert runner.probe_window_blocks(first) == 4.0
     rest = list(itertools.islice(it, 8))
     assert {m for m, _ in rest} == {1}
-    window = fleet.probe_window_blocks(rest)
+    window = runner.probe_window_blocks(rest)
     assert window == 8.0
     probe = runner.DeviceProbe(None, 8 / len(cfgs))
     probe.start = None  # scripted below
@@ -697,6 +704,28 @@ def test_realtime_window_shape_equal_jax(fixtures_dir, tmp_path, monkeypatch,
                                    (W, 4), (W, 3)), k
             assert g.dtype == np.asarray(v).dtype and np.array_equal(g, v), k
         assert batch.args["gain_a"].shape == (W, cfg.num_channels)
+
+
+@pytest.mark.parametrize("kw, one, fleet1, fleet3", [
+    ({}, 25, 25, 25),
+    ({"dispatch_blocks": 2}, 2, 2, 3),  # a fleet: at least one full round
+    ({"realtime": True}, 4, 4, 12),  # paced: half the FIFO per member
+    # a paced fleet ignores dispatch_blocks below fifo_depth // 2
+    ({"realtime": True, "dispatch_blocks": 2}, 2, 4, 12),
+    ({"interactive": True, "dispatch_blocks": 3}, 3, None, None),
+])
+def test_dispatch_window_of_one_scenario_and_of_a_fleet(kw, one, fleet1,
+                                                        fleet3):
+    """One function gives each caller's window: a scenario's (a config)
+    and a fleet's (a list of them), which differ where a paced fleet
+    takes the FIFO bound whatever dispatch_blocks says; a fleet's explicit
+    ``window`` wins."""
+    cfg = SimConfig(nav_file="unused", fifo_depth=8, **kw)
+    assert runner.dispatch_window(cfg) == one
+    if fleet1 is not None:  # fleets refuse interactive members
+        assert runner.dispatch_window([cfg]) == fleet1
+        assert runner.dispatch_window([cfg] * 3) == fleet3
+        assert runner.dispatch_window([cfg] * 3, window=7) == 7
 
 
 def test_resume_jax_checkpoint_realtime(fixtures_dir, tmp_path):

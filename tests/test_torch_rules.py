@@ -6,6 +6,7 @@
 * ``device="cuda"`` without a card raises; it never runs on the CPU.
 * The kernel wrapper runs its plain version only for CPU tensors, without
   building the kernel.
+* Each stage span of the window pipeline is opened at one call site.
 """
 
 import ast
@@ -69,6 +70,30 @@ def test_package_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert int(out.stdout.split()[-1]) >= 30
+
+
+STAGES = ("plan", "collate", "pack", "launch", "snapshot", "wait",
+          "correct", "sink", "hook", "pace")
+
+
+def test_each_stage_span_opens_at_one_call_site():
+    """One window pipeline (``runner._run_batched``): each stage's
+    ``trace.span`` is opened at exactly one call site in the package, so a
+    second copy of the loop cannot grow back unnoticed."""
+    sites: dict = {}
+    for rel in _port_sources():
+        if not rel.startswith("gpssim_tpu_torch"):
+            continue
+        tree = ast.parse(open(os.path.join(REPO, rel)).read(), filename=rel)
+        for node in ast.walk(tree):
+            func = getattr(node, "func", None)
+            name = getattr(func, "id", getattr(func, "attr", None))
+            if isinstance(node, ast.Call) and name == "span":
+                stage = node.args[0].value if node.args and isinstance(
+                    node.args[0], ast.Constant) else None
+                sites.setdefault(stage, []).append(f"{rel}:{node.lineno}")
+    assert sorted(sites) == sorted(STAGES), sites
+    assert all(len(sites[s]) == 1 for s in STAGES), sites
 
 
 def _no_card(monkeypatch):
